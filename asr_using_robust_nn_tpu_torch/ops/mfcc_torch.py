@@ -1,0 +1,205 @@
+"""Batched MFCC frontend in plain PyTorch: the counterpart of the JAX
+package's `ops/mfcc_xla.py`.
+
+    frames F (B, T, n_fft)                        # strided view, no gather
+    P  = (F @ Cr)^2 + (F @ Ci)^2                  # windowed rDFT as 2 GEMMs
+    M  = P @ MelW^T                               # mel projection
+    D  = power_to_db(M)  (per-utterance max)      # elementwise + reduce
+    C  = D @ Dct^T                                # cepstral projection
+
+`mfcc_torch_batch` is the plain pipeline: the rDFT -> power -> mel chain
+in fp32 GEMMs (`mel_power_plain`), then the dB/DCT finish. The chain has a
+hand-written CUDA kernel beside its plain twin in `ops/cuda_mfcc.py`; both
+share `finish_mfcc_from_mel`, which runs in float64 (see its docstring).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import filters
+from .frontend_ref import num_frames as _num_frames
+
+__all__ = [
+    "FrontendConfig",
+    "center_pad",
+    "frame_signal",
+    "finish_mfcc_from_mel",
+    "device_constants",
+    "mfcc_torch_batch",
+]
+
+_DFT_ALGORITHMS = ("bf16_x6", "bf16_x3")
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Static parameters of one MFCC parameterization.
+
+    Presets: `digit()` reproduces `librosa.feature.mfcc(y, sr)` defaults;
+    `speaker()` the overrides win_length=441, n_fft=441, hop_length=220.
+
+    The fields equal the JAX package's `FrontendConfig` one for one, so two
+    configs compare equal field by field. `precision`, `dft_algorithm` and
+    `dft_split_levels` steer only the JAX package's XLA einsums; the port
+    ignores them (its precision is set per path: ops/cuda_mfcc.py).
+    """
+
+    sr: int = 22050
+    n_mfcc: int = 20
+    n_mels: int = 128
+    n_fft: int = 2048
+    hop_length: int = 512
+    win_length: int = 2048
+    utterance_length: int = 44  # output frames after truncate/pad
+    amin: float = 1e-10
+    top_db: float = 80.0
+    precision: str = "highest"
+    dft_algorithm: str | None = None
+    pad_mode: str = "constant"  # STFT center padding: librosa >= 0.10
+    dft_split_levels: int = 0
+
+    def __post_init__(self):
+        if self.dft_algorithm is not None and (
+                self.dft_algorithm not in _DFT_ALGORITHMS):
+            raise ValueError(
+                f"dft_algorithm={self.dft_algorithm!r}: expected one of "
+                f"{sorted(_DFT_ALGORITHMS)} or None"
+            )
+
+    @staticmethod
+    def digit() -> "FrontendConfig":
+        return FrontendConfig()
+
+    @staticmethod
+    def speaker() -> "FrontendConfig":
+        return FrontendConfig(
+            n_fft=441, hop_length=220, win_length=441, utterance_length=101,
+            dft_algorithm="bf16_x6",
+        )
+
+    @property
+    def n_freq(self) -> int:
+        return filters.n_fft_bins(self.n_fft)
+
+    @property
+    def feature_dim(self) -> int:
+        return self.n_mfcc * self.utterance_length
+
+    def num_frames(self, n_samples: int) -> int:
+        """librosa-exact centered frame count (odd-n_fft aware)."""
+        return _num_frames(n_samples, self.hop_length, self.n_fft)
+
+    def constants(self, dtype=np.float32):
+        """(Cr, Ci, MelW^T, Dct^T) as numpy arrays."""
+        cr, ci = filters.rdft_matrices(self.n_fft, self.win_length)
+        mel_t = filters.mel_filterbank(self.sr, self.n_fft, self.n_mels).T
+        dct_t = filters.dct_matrix(self.n_mfcc, self.n_mels).T
+        return (
+            cr.astype(dtype),
+            ci.astype(dtype),
+            mel_t.astype(dtype),
+            dct_t.astype(dtype),
+        )
+
+
+@functools.lru_cache(maxsize=16)
+def device_constants(cfg: FrontendConfig, device: torch.device):
+    """(Cr, Ci, MelW^T) as float32 and Dct^T as float64 tensors on `device`,
+    copied once per (cfg, device)."""
+    cr, ci, mel_t, _ = cfg.constants(np.float32)
+    dct_t = cfg.constants(np.float64)[3]
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)).to(device)
+                 for c in (cr, ci, mel_t, dct_t))
+
+
+def center_pad(waves: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """librosa's center pad: n_fft//2 samples each side, `cfg.pad_mode`."""
+    pad = cfg.n_fft // 2
+    return F.pad(waves, (pad, pad), mode=cfg.pad_mode)
+
+
+def frame_signal(ypad: torch.Tensor, n_frames: int, n_fft: int,
+                 hop: int) -> torch.Tensor:
+    """Frame a (B, Lpad) center-padded batch into (B, n_frames, n_fft).
+
+    Frame t is ypad[:, t*hop : t*hop + n_fft]; a signal too short for
+    `n_frames` frames is zero-extended first, as the JAX `frame_signal` does.
+    """
+    need = (n_frames - 1) * hop + n_fft
+    if ypad.shape[-1] < need:
+        ypad = F.pad(ypad, (0, need - ypad.shape[-1]))
+    return ypad.unfold(-1, n_fft, hop)[:, :n_frames]
+
+
+def _valid_frames_mask(cfg, lengths, b, n_frames, device):
+    """Per-utterance valid-frame mask from true sample lengths, using the
+    librosa-exact frame-count formula (odd-n_fft aware)."""
+    if lengths is None:
+        return torch.ones((b, n_frames), dtype=torch.bool, device=device)
+    frame_ids = torch.arange(n_frames, device=device)[None, :]
+    true_frames = _num_frames(lengths.to(device)[:, None], cfg.hop_length,
+                              cfg.n_fft)
+    return frame_ids < true_frames
+
+
+def finish_mfcc_from_mel(mel, cfg, lengths, b, n_frames, dct_t):
+    """dB -> DCT finish with per-utterance masking, shared by the plain and
+    kernel paths: (B, T, n_mels) mel power -> (B, n_mfcc, utterance_length)
+    float32, given the float64 (n_mels, n_mfcc) `dct_t`.
+
+    Runs in float64 and rounds once at the end. Near-silent frames carry
+    |MFCC| ~ 1e3 (c0 of a flat -100 dB floor), where the rounding of an fp32
+    log10 and 128-term DCT alone reaches ~1e-3 abs, twice the 5e-4 parity
+    bar; the finish is ~1/1000 of the frontend's FLOPs, so f64 costs little.
+
+    Invalid frames are -inf in the per-utterance max and zero in the output,
+    so a row with no valid frame comes out as zeros, not NaN."""
+    log_spec = 10.0 * torch.log10(torch.clamp(mel.double(), min=cfg.amin))
+    valid = _valid_frames_mask(cfg, lengths, b, n_frames, mel.device)
+    masked = torch.where(valid[..., None], log_spec, -torch.inf)
+    utt_max = torch.amax(masked, dim=(1, 2), keepdim=True)
+    db = torch.maximum(log_spec, utt_max - cfg.top_db)
+    mfcc = db @ dct_t
+    mfcc = torch.where(valid[..., None], mfcc, 0.0)
+    t_out = cfg.utterance_length
+    if n_frames >= t_out:
+        mfcc = mfcc[:, :t_out, :]
+    else:
+        mfcc = F.pad(mfcc, (0, 0, 0, t_out - n_frames))
+    return mfcc.transpose(1, 2).float()  # (B, n_mfcc, T) — reference layout
+
+
+def mel_power_plain(waves: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """(B, L) waves -> (B, T, n_mels) mel power: pad, frame, two fp32 GEMMs
+    for the windowed rDFT, |.|^2, mel GEMM. The plain twin of the CUDA
+    kernel in ops/cuda_mfcc.py."""
+    if waves.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
+    n_frames = cfg.num_frames(waves.shape[-1])
+    cr, ci, mel_t, _ = device_constants(cfg, waves.device)
+    frames = frame_signal(center_pad(waves.float(), cfg), n_frames,
+                          cfg.n_fft, cfg.hop_length)
+    re = frames @ cr
+    im = frames @ ci
+    return (re * re + im * im) @ mel_t
+
+
+def mfcc_torch_batch(waves: torch.Tensor, cfg: FrontendConfig,
+                     lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched MFCC: (B, L) float32 waveforms -> (B, n_mfcc, utterance_length).
+
+    `lengths` (B,) marks the true sample count of each zero-padded waveform;
+    frames past the librosa frame count of that length are excluded from the
+    top_db max and zeroed in the output.
+    """
+    b, n_samples = waves.shape
+    mel = mel_power_plain(waves, cfg)
+    dct_t = device_constants(cfg, waves.device)[3]
+    return finish_mfcc_from_mel(mel, cfg, lengths, b,
+                                cfg.num_frames(n_samples), dct_t)
