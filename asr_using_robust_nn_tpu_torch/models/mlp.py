@@ -27,7 +27,8 @@ import math
 
 import torch
 
-__all__ = ["MLPConfig", "init_mlp", "apply_mlp", "predict_probs"]
+__all__ = ["MLPConfig", "init_mlp", "apply_mlp", "predict_probs",
+           "dense_kernels", "set_dense_kernels"]
 
 HIDDEN = (1024, 512, 256, 128, 64)
 
@@ -172,3 +173,16 @@ def predict_probs(cfg: MLPConfig, params: dict, state: dict,
     """Softmax probabilities in eval mode — `model.predict` equivalent."""
     logits, _ = apply_mlp(cfg, params, state, x, train=False)
     return torch.softmax(logits, dim=-1)
+
+
+def dense_kernels(params: dict) -> list[torch.Tensor]:
+    """The Dense kernels W_1..W_m in forward order: the list the constraint
+    engine works on."""
+    return [p["w"] for p in params["layers"]]
+
+
+def set_dense_kernels(params: dict, ws: list[torch.Tensor]) -> dict:
+    """A new params dict with every Dense kernel replaced; the other leaves
+    are shared with `params`."""
+    layers = [dict(p, w=w) for p, w in zip(params["layers"], ws)]
+    return dict(params, layers=layers)

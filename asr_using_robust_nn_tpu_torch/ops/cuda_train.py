@@ -1,0 +1,866 @@
+"""K3 on Hopper: the fused constrained epoch, its plain twin, and the packed
+state both run on. Counterpart of the JAX package's `ops/pallas_train.py`
+(the epoch-grid kernel `_make_epoch_kernel` and its builders).
+
+  pack_state / unpack_params / unpack_opt_state / pad_features
+      the padded training state: fp32 masters, bf16 compute copies and fp32
+      Adam moments per layer, with every dim padded to a multiple of 128,
+      and the small per-layer vectors stacked into (m, dmax) arrays.
+  fused_epoch_plain(spec, fstate, xs, ys, ws, seeds)
+      the step math in PyTorch with an explicit backward, rounded where the
+      kernel rounds: bf16 GEMM operands summed in fp32, activations and x^
+      stored in bf16, dZ cast to bf16 before the dW and dX products.
+  build_fused_epoch_call(spec, n_batches) -> run(fstate, xs, ys, ws, seeds)
+      CUDA tensors: csrc/fused_epoch.cu's kernels (and K2's for the
+      projection) for all n_batches steps, captured once per (spec,
+      n_batches, device) into one CUDA graph and replayed per call; CPU
+      tensors: `fused_epoch_plain`.
+  build_fused_epoch_fn(spec, ...)
+      the epoch on the whole split: the shuffle gather in PyTorch, per-step
+      dropout seeds from a torch.Generator, then one `run`.
+  epoch_parity_vs_plain(...)
+      the numeric check the trainer runs before it trains with K3.
+
+Both the twin and the kernels run one step program, `_step`, over one set
+of buffers; only the operations differ (`_PlainOps`, `_CudaOps`). A CUDA
+tensor never falls back to the twin. `build_fused_epoch_call.launches` counts
+graph replays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..constraints import make_simple_norm_constraint
+from ..models.mlp import MLPConfig, init_mlp
+from ..train.epoch_scan import build_epoch_fn, shuffle_batches
+from ..train.trainer import _generator, adam_optimizer
+from ._build import load_library
+from .cuda_spectral import pi_launch, pi_scratch, preload
+from .spectral import product_spectral_norm_with_state
+
+__all__ = ["FusedStepSpec", "pack_state", "unpack_params", "unpack_opt_state",
+           "pad_features", "fused_epoch_plain", "build_fused_epoch_call",
+           "build_fused_epoch_fn", "epoch_parity_vs_plain", "parity_bars",
+           "dropout_keep",
+           "KERNEL_SOURCE", "REPLACES"]
+
+KERNEL_SOURCE = "asr_using_robust_nn_tpu_torch/csrc/fused_epoch.cu"
+REPLACES = "asr_using_robust_nn_tpu/ops/pallas_train.py:546"
+_LANE = 128
+_EPS = float(np.spacing(1.0))
+_SMALL_KEYS = ("b", "m_b", "v_b", "gamma", "m_gamma", "v_gamma",
+               "beta", "m_beta", "v_beta", "rmean", "rvar")
+_BF16 = torch.bfloat16
+
+
+def _pad_to(n: int, m: int = _LANE) -> int:
+    return -(-n // m) * m
+
+
+@dataclass(frozen=True)
+class FusedStepSpec:
+    """Static geometry and hyperparameters of the fused step program."""
+
+    cfg: MLPConfig
+    batch: int
+    lr: float = 1e-3
+    rho: float | None = None     # simple_norm strength; None = no constraint
+    pi_iters: int = 4            # power-iteration rounds per step
+    # The backward ReLU mask is x^ > -mu * sdinv with x^ stored in bf16. The
+    # threshold is rounded to bf16 too, so a dead unit (a = 0, x^ exactly
+    # the threshold) stays masked. True compares against the fp32 threshold,
+    # as the JAX package's Pallas kernel does: there about half the dead
+    # units round above it and pass gradient. Only the plain twin has this
+    # switch (the tests hold it against that kernel); K3 refuses it.
+    pallas_relu_mask: bool = False
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        c = self.cfg
+        return (c.in_dim,) + tuple(c.hidden) + (c.n_classes,)
+
+    @property
+    def pdims(self) -> tuple[int, ...]:
+        return tuple(_pad_to(d) for d in self.dims)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.dims) - 1
+
+    @property
+    def dmax(self) -> int:
+        return max(self.pdims[1:])
+
+
+# --------------------------------------------------------------------------
+# packed state
+# --------------------------------------------------------------------------
+
+def pack_state(spec: FusedStepSpec, params: dict, state: dict) -> dict:
+    """(params, state) -> the padded fstate on the params' device. Adam
+    moments and `count` start at 0, `scales` at 1; `u` is drawn from a
+    torch.Generator seeded 23 (JAX draws from PRNGKey(23); its values
+    differ, models/convert.py carries a JAX-packed u across)."""
+    dev = params["layers"][0]["w"].device
+    pd, m = spec.pdims, spec.n_layers
+    masters = []
+    for i, p in enumerate(params["layers"]):
+        w = torch.zeros((pd[i], pd[i + 1]), device=dev)
+        w[: spec.dims[i], : spec.dims[i + 1]] = p["w"]
+        masters.append(w)
+
+    def stack_vec(getter):
+        a = torch.zeros((m, spec.dmax), device=dev)
+        for i in range(m):
+            v = getter(i)
+            if v is not None:
+                a[i, : v.shape[0]] = v
+        return a
+
+    hidden = lambda i, d, k: d["layers"][i].get(k) if i < m - 1 else None  # noqa: E731
+    small = {
+        "b": stack_vec(lambda i: params["layers"][i]["b"]),
+        "gamma": stack_vec(lambda i: hidden(i, params, "gamma")),
+        "beta": stack_vec(lambda i: hidden(i, params, "beta")),
+        "rmean": stack_vec(lambda i: hidden(i, state, "mean")),
+        "rvar": stack_vec(lambda i: hidden(i, state, "var")),
+    }
+    for k in ("b", "gamma", "beta"):
+        small["m_" + k] = torch.zeros_like(small[k])
+        small["v_" + k] = torch.zeros_like(small[k])
+    gen = torch.Generator(device=dev).manual_seed(23)
+    return {
+        "masters": tuple(masters),
+        "w16": tuple(w.to(_BF16) for w in masters),
+        "mw": tuple(torch.zeros_like(w) for w in masters),
+        "vw": tuple(torch.zeros_like(w) for w in masters),
+        "small": small,
+        "scales": torch.ones((1, _LANE), device=dev),
+        "u": torch.randn((1, pd[-1]), generator=gen, device=dev),
+        "count": torch.zeros((1,), dtype=torch.int32, device=dev),
+    }
+
+
+def unpack_params(spec: FusedStepSpec, fstate: dict) -> tuple[dict, dict]:
+    """fstate -> (params, state) in the standard layout (copies), with any
+    deferred `scales` folded into the kernels."""
+    m, dims = spec.n_layers, spec.dims
+    sm = fstate["small"]
+    layers, slayers = [], []
+    for i in range(m):
+        d = dims[i + 1]
+        w = fstate["masters"][i] * fstate["scales"][0, i]
+        p = {"w": w[: dims[i], :d].clone(), "b": sm["b"][i, :d].clone()}
+        s = {}
+        if i < m - 1 and spec.cfg.batch_norm:
+            p["gamma"] = sm["gamma"][i, :d].clone()
+            p["beta"] = sm["beta"][i, :d].clone()
+            s["mean"] = sm["rmean"][i, :d].clone()
+            s["var"] = sm["rvar"][i, :d].clone()
+        layers.append(p)
+        slayers.append(s)
+    return {"layers": layers}, {"layers": slayers}
+
+
+def unpack_opt_state(spec: FusedStepSpec, fstate: dict, optimizer,
+                     params: dict) -> dict:
+    """fstate moments/count -> the trainer's Adam state ({"count", "mu",
+    "nu"} in `optimizer.moments_dtype`), paired with `unpack_params`."""
+    m, dims = spec.n_layers, spec.dims
+    sm = fstate["small"]
+    dt = optimizer.moments_dtype
+
+    def moments(prefix, stacked):
+        layers = []
+        for i, p in enumerate(params["layers"][:m]):
+            d = dims[i + 1]
+            q = {"w": stacked[i][: dims[i], :d].to(dt, copy=True),
+                 "b": sm[prefix + "_b"][i, :d].to(dt, copy=True)}
+            if "gamma" in p:
+                q["gamma"] = sm[prefix + "_gamma"][i, :d].to(dt, copy=True)
+                q["beta"] = sm[prefix + "_beta"][i, :d].to(dt, copy=True)
+            layers.append(q)
+        return {"layers": layers}
+
+    return {"count": fstate["count"][0].clone(),
+            "mu": moments("m", fstate["mw"]), "nu": moments("v", fstate["vw"])}
+
+
+def pad_features(spec: FusedStepSpec, x: torch.Tensor) -> torch.Tensor:
+    """(N, in_dim) -> (N, pdims[0]) float32 with zero feature columns."""
+    x = x.float()
+    pad = spec.pdims[0] - spec.dims[0]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+# --------------------------------------------------------------------------
+# dropout hash (csrc/fused_epoch.cu: mix32 / keep_unit)
+# --------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), without int64 overflow."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_keep(seed: torch.Tensor, layer: int, rows: int, cols: int,
+                 keep: float) -> torch.Tensor:
+    """(rows, cols) bool mask of kept units: h = mix32((row * cols + col) ^
+    mix32(seed + layer)), kept iff (h >> 8) * 2^-24 < keep, bit for bit the
+    kernel's draw. `seed` is an int32 tensor (0-d or (1,))."""
+    dev = seed.device
+    key = _mix32((seed.reshape(()).long() + layer) & _M32)
+    idx = (torch.arange(rows, device=dev)[:, None] * cols
+           + torch.arange(cols, device=dev)[None, :])
+    h = _mix32(idx ^ key)
+    u = (h >> 8).float() * (1.0 / (1 << 24))
+    return u < torch.tensor(keep, dtype=torch.float32, device=dev)
+
+
+# --------------------------------------------------------------------------
+# the step program and its two sets of operations
+# --------------------------------------------------------------------------
+
+def _keeps(spec):
+    c = spec.cfg
+    return tuple(1.0 - (c.dropout[i] if i < len(c.dropout) else 0.0)
+                 for i in range(spec.n_layers - 1))
+
+
+class _AdamArgs(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_float) for k in
+                ("lr", "b1", "b2", "omb1", "omb2", "eps", "logb1", "logb2")]
+
+
+def _adam_consts(spec):
+    b1, b2 = 0.9, 0.999
+    return dict(lr=spec.lr, b1=b1, b2=b2, omb1=1 - b1, omb2=1 - b2, eps=1e-7,
+                logb1=float(np.log(b1)), logb2=float(np.log(b2)))
+
+
+def _view(buf: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return buf[: rows * cols].view(rows, cols)
+
+
+def _scratch(spec: FusedStepSpec, device) -> dict:
+    """Every buffer a step uses besides the state; reused by every step."""
+    B, pd, m, dmax = spec.batch, spec.pdims, spec.n_layers, spec.dmax
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "acts": [torch.empty((B, pd[i]), dtype=_BF16, device=device)
+                 for i in range(m)],
+        "xhats": [torch.empty((B, pd[i + 1]), dtype=_BF16, device=device)
+                  for i in range(m - 1)],
+        "z": torch.empty(B * dmax, **f32),
+        "da": torch.empty(B * dmax, **f32),
+        "dzb": torch.empty(B * dmax, dtype=_BF16, device=device),
+        "muvec": torch.zeros((m, dmax), **f32),
+        "sdvec": torch.zeros((m, dmax), **f32),
+        "denom": torch.empty(1, **f32),
+        "sigma": torch.empty(1, **f32),
+        "pi": pi_scratch(pd, device),
+    }
+
+
+def _step(ops, spec, fs, sc, x, y, w, seeds, s, losses, accs):
+    """One training step on the packed state (Pallas `_make_epoch_kernel`
+    body): forward, CCE, backward with Adam fused per layer (dX before the
+    layer's weight update), projection."""
+    m, pd, B = spec.n_layers, spec.pdims, spec.batch
+    sm = fs["small"]
+    ops.prologue(x, w, sc["acts"][0], sc["denom"])
+    for i in range(m):
+        z = _view(sc["z"], B, pd[i + 1])
+        last = i == m - 1
+        ops.gemm_fwd(sc["acts"][i], fs["w16"][i], sm["b"][i], z,
+                     spec.cfg.n_classes if last else -1)
+        if not last:
+            ops.bn_fwd(i, z, w, sc["denom"], sm, sc["muvec"][i],
+                       sc["sdvec"][i], sc["xhats"][i], sc["acts"][i + 1],
+                       seeds, s)
+    ops.ce(z, y, w, sc["denom"], losses, accs, s, _view(sc["da"], B, pd[-1]))
+    for i in range(m - 1, -1, -1):
+        dzb = _view(sc["dzb"], B, pd[i + 1])
+        ops.bn_bwd(i, _view(sc["da"], B, pd[i + 1]),
+                   sc["xhats"][i] if i < m - 1 else None, w, sc["denom"], sm,
+                   sc["muvec"][i], sc["sdvec"][i], dzb, seeds, s, fs["count"])
+        if i > 0:
+            ops.gemm_dx(dzb, fs["w16"][i], _view(sc["da"], B, pd[i]))
+        ops.gemm_dw_adam(i, sc["acts"][i], dzb, fs, fs["count"], s)
+    if spec.rho is not None:
+        ops.project(fs, sc)
+
+
+def _epoch(ops, spec, fs, sc, xs, ys, ws, seeds, losses, accs):
+    """All steps of one epoch; the bf16 copies start and end as a cast of
+    the masters, and `count` advances by the number of steps."""
+    m = spec.n_layers
+    for i in range(m):
+        ops.cast_w16(fs["masters"][i], fs["w16"][i])
+    for s in range(xs.shape[0]):
+        _step(ops, spec, fs, sc, xs[s], ys[s], ws[s], seeds, s, losses, accs)
+    ops.count_add(fs["count"], xs.shape[0])
+    for i in range(m):
+        ops.cast_w16(fs["masters"][i], fs["w16"][i])
+
+
+class _PlainOps:
+    """The step's operations in PyTorch, writing the same buffers."""
+
+    def __init__(self, spec: FusedStepSpec):
+        self.spec = spec
+        self.keeps = _keeps(spec)
+        self.a = _adam_consts(spec)
+
+    def _bc(self, count, s):
+        t = (count + s + 1).float()
+        return (1.0 - torch.exp(t * self.a["logb1"]),
+                1.0 - torch.exp(t * self.a["logb2"]))
+
+    def _adam(self, p, mw, vw, g, bc1, bc2):
+        a = self.a
+        mn = a["b1"] * mw + a["omb1"] * g
+        vn = a["b2"] * vw + a["omb2"] * g * g
+        upd = (mn / bc1) / (torch.sqrt(vn / bc2) + a["eps"])
+        return p - a["lr"] * upd, mn, vn
+
+    def _small_adam(self, sm, key, i, g, bc1, bc2):
+        d = g.shape[0]
+        p, mn, vn = self._adam(sm[key][i, :d], sm["m_" + key][i, :d],
+                               sm["v_" + key][i, :d], g, bc1, bc2)
+        sm[key][i, :d] = p
+        sm["m_" + key][i, :d] = mn
+        sm["v_" + key][i, :d] = vn
+
+    def cast_w16(self, master, w16):
+        w16.copy_(master.to(_BF16))
+
+    def prologue(self, x, w, acts0, denom):
+        acts0.copy_(x.to(_BF16))
+        denom.copy_((torch.sum(w) + 1e-9).reshape(1))
+
+    def gemm_fwd(self, a16, w16, bias_row, out, n_classes):
+        d = out.shape[1]
+        z = a16.float() @ w16.float() + bias_row[:d]
+        if n_classes >= 0:
+            cmask = torch.arange(d, device=z.device) >= n_classes
+            z = torch.where(cmask, -1e9, z)
+        else:
+            z = torch.clamp_min(z, 0.0)
+        out.copy_(z)
+
+    def bn_fwd(self, i, a, w, denom, sm, muvec, sdvec, xhat, act_next, seeds,
+               s):
+        c = self.spec.cfg
+        d = a.shape[1]
+        if c.batch_norm:
+            wc = w[:, None]
+            mu = torch.sum(a * wc, 0) / denom
+            var = torch.sum(((a - mu) ** 2) * wc, 0) / denom
+            sdinv = torch.rsqrt(var + c.bn_eps)
+            muvec[:d] = mu
+            sdvec[:d] = sdinv
+            xh = (a - mu) * sdinv
+            out = xh * sm["gamma"][i, :d] + sm["beta"][i, :d]
+            mom = c.bn_momentum
+            sm["rmean"][i, :d] = mom * sm["rmean"][i, :d] + (1 - mom) * mu
+            sm["rvar"][i, :d] = mom * sm["rvar"][i, :d] + (1 - mom) * var
+        else:
+            xh = out = a
+            muvec[:d] = 0.0
+            sdvec[:d] = 1.0
+        xhat.copy_(xh.to(_BF16))
+        keep = self.keeps[i]
+        if keep < 1.0:
+            mask = dropout_keep(seeds[s], i, a.shape[0], d, keep)
+            out = torch.where(mask, out / keep, 0.0)
+        act_next.copy_(out.to(_BF16))
+
+    def ce(self, logits, y, w, denom, losses, accs, s, dz):
+        zmax = torch.max(logits, 1, keepdim=True).values
+        ez = torch.exp(logits - zmax)
+        sez = torch.sum(ez, 1, keepdim=True)
+        probs = ez / sez
+        onehot = (torch.arange(logits.shape[1], device=logits.device)[None]
+                  == y[:, None]).float()
+        logp = logits - zmax - torch.log(sez)
+        nll = -torch.sum(logp * onehot, 1)
+        losses[s] = torch.sum(nll * w) / denom[0]
+        pred = torch.argmax(logits, 1)
+        accs[s] = torch.sum((pred == y).float() * w) / denom[0]
+        dz.copy_((probs - onehot) * w[:, None] / denom)
+
+    def bn_bwd(self, i, dD, xhat, w, denom, sm, muvec, sdvec, dzb, seeds, s,
+               count):
+        c = self.spec.cfg
+        d = dD.shape[1]
+        bc1, bc2 = self._bc(count, s)
+        if xhat is None:  # output layer
+            dz = dD
+        else:
+            keep = self.keeps[i]
+            if keep < 1.0:
+                mask = dropout_keep(seeds[s], i, dD.shape[0], d, keep)
+                dD = torch.where(mask, dD / keep, 0.0)
+            xh = xhat.float()
+            if c.batch_norm:
+                dgamma = torch.sum(dD * xh, 0)
+                dbeta = torch.sum(dD, 0)
+                dxh = dD * sm["gamma"][i, :d]  # gamma before its update
+                self._small_adam(sm, "gamma", i, dgamma, bc1, bc2)
+                self._small_adam(sm, "beta", i, dbeta, bc1, bc2)
+                da = self.bn_dx(dxh, xh, (w / denom)[:, None],
+                                sdvec[:d][None])
+                # a > 0 <=> x^ > -mu * sdinv (FusedStepSpec.pallas_relu_mask)
+                thr = -muvec[:d] * sdvec[:d]
+                if not self.spec.pallas_relu_mask:
+                    thr = thr.to(_BF16).float()
+                relu = xh > thr[None]
+            else:
+                da = dD
+                relu = xh > 0.0
+            dz = torch.where(relu, da, 0.0)
+        self._small_adam(sm, "b", i, torch.sum(dz, 0), bc1, bc2)
+        dzb.copy_(dz.to(_BF16))
+
+    @staticmethod
+    def bn_dx(dxh, xh, wd, sd):
+        """dL/da of the row-weighted BN from dL/dx^ (wd = w / denom)."""
+        s1 = torch.sum(dxh, 0, keepdim=True)
+        s2 = torch.sum(dxh * xh, 0, keepdim=True)
+        return sd * (dxh - wd * s1 - wd * xh * s2)
+
+    def gemm_dx(self, dzb, w16, out):
+        out.copy_(dzb.float() @ w16.float().T)
+
+    def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
+        g = acts.float().T @ dzb.float()
+        bc1, bc2 = self._bc(count, s)
+        wn, mn, vn = self._adam(fs["masters"][i], fs["mw"][i], fs["vw"][i], g,
+                                bc1, bc2)
+        if self.spec.cfg.nonneg:
+            wn = torch.clamp_min(wn, 0.0)
+        fs["masters"][i].copy_(wn)
+        fs["mw"][i].copy_(mn)
+        fs["vw"][i].copy_(vn)
+        fs["w16"][i].copy_(wn.to(_BF16))
+
+    def project(self, fs, sc):
+        spec = self.spec
+        m = spec.n_layers
+        sigma, u = product_spectral_norm_with_state(
+            [w.float() for w in fs["w16"]], fs["u"][0], n_iter=spec.pi_iters,
+            eps=_EPS, matvec_dtype=_BF16)
+        fs["u"][0] = u
+        inv_m = float(np.float32(1.0 / m))
+        for i in range(m):
+            f = torch.exp(torch.log(spec.rho / (sigma + _EPS)) * inv_m)
+            fs["w16"][i].copy_((fs["w16"][i].float() * f).to(_BF16))
+            fs["masters"][i].mul_(f)
+            sigma = sigma * f
+
+    def count_add(self, count, n):
+        count.add_(n)
+
+
+@functools.cache
+def _lib():
+    lib = load_library("fused_epoch")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sig = {
+        "asr_fe_cast_bf16": [p, p, ctypes.c_longlong, p],
+        "asr_fe_prologue": [p, p, p, p, i, i, p],
+        "asr_fe_gemm_fwd": [p, p, p, p, i, i, i, i, p],
+        "asr_fe_gemm_dx": [p, p, p, i, i, i, p],
+        "asr_fe_gemm_dw_adam": [p, p, p, p, p, p, i, i, i, p, i,
+                                ctypes.POINTER(_AdamArgs), i, p],
+        "asr_fe_bn_fwd": [p, i, i, p, p, p, p, p, p, p, p, p, p, i, f, f, f,
+                          f, p, i, i, p],
+        "asr_fe_ce": [p, p, p, p, i, i, p, p, i, p, p],
+        "asr_fe_bn_bwd": [i, p, i, i, p, p, p, p, p, p, p, f, p, i, i, p,
+                          ctypes.POINTER(_AdamArgs), p],
+        "asr_fe_count_add": [p, i, p],
+        "asr_fe_preload": [],
+    }
+    for name, argtypes in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"fused_epoch {name} launch failed: CUDA error {rc}")
+
+
+class _CudaOps:
+    """The step's operations as launches of csrc/fused_epoch.cu's kernels
+    (and K2's for the projection) on the current stream."""
+
+    def __init__(self, spec: FusedStepSpec):
+        if spec.pallas_relu_mask:
+            raise ValueError("FusedStepSpec.pallas_relu_mask: K3 masks with "
+                             "the bf16 threshold only; the Pallas rule runs "
+                             "in the plain twin")
+        self.spec = spec
+        self.lib = _lib()
+        self.keeps = _keeps(spec)
+        self.adam = _AdamArgs(**_adam_consts(spec))
+        c = spec.cfg
+        self.bn = (int(c.batch_norm), c.bn_eps, c.bn_momentum,
+                   1 - c.bn_momentum)
+
+    @staticmethod
+    def _stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def cast_w16(self, master, w16):
+        _check("cast", self.lib.asr_fe_cast_bf16(
+            master.data_ptr(), w16.data_ptr(), master.numel(), self._stream()))
+
+    def prologue(self, x, w, acts0, denom):
+        _check("prologue", self.lib.asr_fe_prologue(
+            x.data_ptr(), acts0.data_ptr(), w.data_ptr(), denom.data_ptr(),
+            x.shape[0], x.shape[1], self._stream()))
+
+    def gemm_fwd(self, a16, w16, bias_row, out, n_classes):
+        M, K = a16.shape
+        _check("gemm_fwd", self.lib.asr_fe_gemm_fwd(
+            a16.data_ptr(), w16.data_ptr(), bias_row.data_ptr(),
+            out.data_ptr(), M, w16.shape[1], K, n_classes, self._stream()))
+
+    def bn_fwd(self, i, a, w, denom, sm, muvec, sdvec, xhat, act_next, seeds,
+               s):
+        use_bn, eps, mom, omm = self.bn
+        _check("bn_fwd", self.lib.asr_fe_bn_fwd(
+            a.data_ptr(), a.shape[0], a.shape[1], w.data_ptr(),
+            denom.data_ptr(), sm["gamma"][i].data_ptr(),
+            sm["beta"][i].data_ptr(), sm["rmean"][i].data_ptr(),
+            sm["rvar"][i].data_ptr(), muvec.data_ptr(), sdvec.data_ptr(),
+            xhat.data_ptr(), act_next.data_ptr(), use_bn, eps, mom, omm,
+            self.keeps[i], seeds.data_ptr(), s, i, self._stream()))
+
+    def ce(self, logits, y, w, denom, losses, accs, s, dz):
+        _check("ce", self.lib.asr_fe_ce(
+            logits.data_ptr(), y.data_ptr(), w.data_ptr(), denom.data_ptr(),
+            logits.shape[0], logits.shape[1], losses.data_ptr(),
+            accs.data_ptr(), s, dz.data_ptr(), self._stream()))
+
+    def bn_bwd(self, i, dD, xhat, w, denom, sm, muvec, sdvec, dzb, seeds, s,
+               count):
+        last = xhat is None
+        mode = 0 if last else (1 if self.spec.cfg.batch_norm else 2)
+        keys = ("gamma", "m_gamma", "v_gamma", "beta", "m_beta", "v_beta",
+                "b", "m_b", "v_b")
+        rows = (ctypes.c_void_p * 9)(*[sm[k][i].data_ptr() for k in keys])
+        _check("bn_bwd", self.lib.asr_fe_bn_bwd(
+            mode, dD.data_ptr(), dD.shape[0], dD.shape[1],
+            None if last else xhat.data_ptr(), w.data_ptr(), denom.data_ptr(),
+            rows, muvec.data_ptr(), sdvec.data_ptr(), dzb.data_ptr(),
+            1.0 if last else self.keeps[i], seeds.data_ptr(), s, i,
+            count.data_ptr(), ctypes.byref(self.adam), self._stream()))
+
+    def gemm_dx(self, dzb, w16, out):
+        _check("gemm_dx", self.lib.asr_fe_gemm_dx(
+            dzb.data_ptr(), w16.data_ptr(), out.data_ptr(), dzb.shape[0],
+            w16.shape[0], w16.shape[1], self._stream()))
+
+    def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
+        K, M = acts.shape
+        _check("gemm_dw_adam", self.lib.asr_fe_gemm_dw_adam(
+            acts.data_ptr(), dzb.data_ptr(), fs["masters"][i].data_ptr(),
+            fs["mw"][i].data_ptr(), fs["vw"][i].data_ptr(),
+            fs["w16"][i].data_ptr(), M, dzb.shape[1], K, count.data_ptr(), s,
+            ctypes.byref(self.adam), int(self.spec.cfg.nonneg),
+            self._stream()))
+
+    def project(self, fs, sc):
+        pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"], sc["pi"],
+                  self.spec.pi_iters, _EPS, rho=self.spec.rho,
+                  masters=list(fs["masters"]))
+
+    def count_add(self, count, n):
+        _check("count_add", self.lib.asr_fe_count_add(
+            count.data_ptr(), n, self._stream()))
+
+
+# --------------------------------------------------------------------------
+# the epoch call: plain twin on the CPU, one CUDA graph per epoch on a card
+# --------------------------------------------------------------------------
+
+def _state_map(fn, fs: dict) -> dict:
+    out = {k: tuple(fn(t) for t in fs[k])
+           for k in ("masters", "w16", "mw", "vw")}
+    out["small"] = {k: fn(fs["small"][k]) for k in _SMALL_KEYS}
+    for k in ("scales", "u", "count"):
+        out[k] = fn(fs[k])
+    return out
+
+
+def _state_leaves(fs: dict) -> list:
+    return ([t for k in ("masters", "w16", "mw", "vw") for t in fs[k]]
+            + [fs["small"][k] for k in _SMALL_KEYS]
+            + [fs["scales"], fs["u"], fs["count"]])
+
+
+def _epoch_inputs(spec, xs, ys, ws, seeds):
+    n, B = xs.shape[0], spec.batch
+    if xs.shape != (n, B, spec.pdims[0]):
+        raise ValueError(f"fused epoch: xs must be (n_batches, {B}, "
+                         f"{spec.pdims[0]}), got {tuple(xs.shape)}")
+    return (xs.float().contiguous(),
+            ys.reshape(n, B).to(torch.int32).contiguous(),
+            ws.reshape(n, B).float().contiguous(),
+            seeds.reshape(n).to(torch.int32).contiguous())
+
+
+def fused_epoch_plain(spec: FusedStepSpec, fstate: dict, xs, ys, ws, seeds,
+                      ops: _PlainOps | None = None):
+    """K3's plain twin: -> (fstate', losses (n, 1), accs (n, 1)) for xs
+    (n, B, pdims[0]) float32, ys and ws (n, B, 1) (labels, row weights),
+    seeds (n,) int32. `fstate` is not modified. `ops` (default
+    `_PlainOps(spec)`) lets a check swap one operation, e.g. to plant a
+    fault. Every GEMM operand is bf16-rounded, hence exact in TF32, so the
+    caller's TF32 setting does not change the result."""
+    xs, ys, ws, seeds = _epoch_inputs(spec, xs, ys, ws, seeds)
+    fs = _state_map(lambda t: t.clone(), fstate)
+    n = xs.shape[0]
+    losses = torch.zeros(n, device=xs.device)
+    accs = torch.zeros(n, device=xs.device)
+    with torch.no_grad():
+        _epoch(ops or _PlainOps(spec), spec, fs, _scratch(spec, xs.device),
+               xs, ys.long(), ws, seeds, losses, accs)
+    fs["scales"] = torch.ones_like(fs["scales"])
+    return fs, losses[:, None], accs[:, None]
+
+
+class _EpochGraph:
+    """Static buffers and the CUDA graph of one (spec, n_batches, device)."""
+
+    def __init__(self, spec: FusedStepSpec, n_batches: int, device):
+        B, pd = spec.batch, spec.pdims
+        if B % 64 or B <= 0:
+            raise ValueError(f"fused epoch on CUDA: batch must be a positive "
+                             f"multiple of 64, got {B}")
+        self.spec = spec
+        with torch.cuda.device(device):
+            zeros = lambda t: torch.zeros_like(t, device=device)  # noqa: E731
+            template = _state_map(lambda t: t, _template_state(spec))
+            self.fs = _state_map(zeros, template)
+            self.xs = torch.zeros((n_batches, B, pd[0]), device=device)
+            self.ys = torch.zeros((n_batches, B), dtype=torch.int32,
+                                  device=device)
+            self.ws = torch.zeros((n_batches, B), device=device)
+            self.seeds = torch.zeros(n_batches, dtype=torch.int32,
+                                     device=device)
+            self.losses = torch.zeros(n_batches, device=device)
+            self.accs = torch.zeros(n_batches, device=device)
+            self.sc = _scratch(spec, device)
+            ops = _CudaOps(spec)
+            _check("preload", ops.lib.asr_fe_preload())
+            preload()
+            torch.cuda.synchronize(device)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                _epoch(ops, spec, self.fs, self.sc, self.xs, self.ys,
+                       self.ws, self.seeds, self.losses, self.accs)
+        self.device = device
+
+    def run(self, fstate, xs, ys, ws, seeds):
+        xs, ys, ws, seeds = _epoch_inputs(self.spec, xs, ys, ws, seeds)
+        for dst, src in zip(_state_leaves(self.fs), _state_leaves(fstate)):
+            if dst.shape != src.shape:
+                raise ValueError(f"fused epoch: state leaf {tuple(src.shape)}"
+                                 f" where {tuple(dst.shape)} was captured")
+            dst.copy_(src)
+        for dst, src in ((self.xs, xs), (self.ys, ys), (self.ws, ws),
+                         (self.seeds, seeds)):
+            dst.copy_(src)
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        build_fused_epoch_call.launches += 1
+        fs = _state_map(lambda t: t.clone(), self.fs)
+        fs["scales"] = torch.ones_like(fs["scales"])
+        return fs, self.losses.clone()[:, None], self.accs.clone()[:, None]
+
+
+def _template_state(spec: FusedStepSpec) -> dict:
+    """A zero fstate on the CPU with the packed shapes and dtypes."""
+    pd, m = spec.pdims, spec.n_layers
+    masters = tuple(torch.zeros((pd[i], pd[i + 1])) for i in range(m))
+    return {
+        "masters": masters, "w16": tuple(w.to(_BF16) for w in masters),
+        "mw": masters, "vw": masters,
+        "small": {k: torch.zeros((m, spec.dmax)) for k in _SMALL_KEYS},
+        "scales": torch.ones((1, _LANE)), "u": torch.zeros((1, pd[-1])),
+        "count": torch.zeros((1,), dtype=torch.int32),
+    }
+
+
+def build_fused_epoch_call(spec: FusedStepSpec, n_batches: int):
+    """-> run(fstate, xs, ys, ws, seeds) -> (fstate', losses, accs): xs
+    (n_batches, B, pdims[0]) f32 gathered batches, ys (n_batches, B, 1)
+    labels, ws (n_batches, B, 1) f32 row weights, seeds (n_batches,) int32
+    per-step dropout seeds; losses/accs (n_batches, 1) f32. fstate' is a new
+    state; its bf16 copies are a cast of its masters and its `scales` are 1
+    (fold deferred scales into the masters first, as build_fused_epoch_fn
+    does). On CUDA tensors the first call per device captures the graph;
+    `run.graphs` maps each device to its `_EpochGraph` (for profiling)."""
+    graphs: dict = {}
+
+    def run(fstate, xs, ys, ws, seeds):
+        if xs.shape[0] != n_batches:
+            raise ValueError(f"fused epoch built for {n_batches} batches, "
+                             f"got {xs.shape[0]}")
+        if xs.device.type == "cpu":
+            return fused_epoch_plain(spec, fstate, xs, ys, ws, seeds)
+        if not xs.is_cuda:
+            raise ValueError(f"fused epoch: unsupported device {xs.device}")
+        g = graphs.get(xs.device)
+        if g is None:
+            g = graphs[xs.device] = _EpochGraph(spec, n_batches, xs.device)
+        return g.run(fstate, xs, ys, ws, seeds)
+
+    run.graphs = graphs
+    return run
+
+
+build_fused_epoch_call.launches = 0
+
+
+def build_fused_epoch_fn(spec: FusedStepSpec, shuffle: bool = True,
+                         epochs_per_call: int = 1,
+                         reshuffle_inner: bool = False):
+    """-> `epoch(fstate, data_pad, labels, perm_gen, drop_gen, n_true)` ->
+    (fstate', mean_loss, mean_acc): the fused counterpart of
+    `train/epoch_scan.py::build_epoch_fn` on the packed state. `data_pad` is
+    (N_pad, pdims[0]) float32, feature- and row-padded (a multiple of
+    spec.batch); the generators live on its device (drop_gen draws the
+    per-step int32 dropout seeds; None gives seed 0).
+
+    K3 runs whole 64-row tiles, so each batch is padded to a multiple of 64
+    with rows of weight 0, which the BN statistics, the CCE and every
+    gradient ignore (the dropout draw of a real row does not change)."""
+    B = spec.batch
+    run_spec = dataclasses.replace(spec, batch=_pad_to(B, 64))
+    pad = run_spec.batch - B
+    calls: dict = {}
+
+    def one_epoch(fstate, batches, drop_gen):
+        xs, ys, ws = batches
+        if pad:
+            pad_rows = torch.nn.functional.pad
+            xs, ys, ws = (pad_rows(xs, (0, 0, 0, pad)), pad_rows(ys, (0, pad)),
+                          pad_rows(ws, (0, pad)))
+        n_batches = xs.shape[0]
+        if drop_gen is None:
+            seeds = torch.zeros(n_batches, dtype=torch.int32,
+                                device=xs.device)
+        else:
+            seeds = torch.randint(0, 2 ** 31 - 1, (n_batches,),
+                                  generator=drop_gen, device=xs.device,
+                                  dtype=torch.int32)
+        ns = torch.sum(ws, 1)
+        total = torch.sum(ns)
+        run = calls.get(n_batches)
+        if run is None:
+            run = calls[n_batches] = build_fused_epoch_call(run_spec,
+                                                            n_batches)
+        sc = fstate["scales"]
+        fstate = {**fstate, "scales": torch.ones_like(sc),
+                  "masters": tuple(w * sc[0, i]
+                                   for i, w in enumerate(fstate["masters"]))}
+        fstate, losses, accs = run(fstate, xs, ys[..., None], ws[..., None],
+                                   seeds)
+        return (fstate, torch.sum(losses[:, 0] * ns) / total,
+                torch.sum(accs[:, 0] * ns) / total)
+
+    def epoch(fstate, data, labels, perm_gen, drop_gen, n_true):
+        out = (fstate, None, None)
+        batches = None
+        for _ in range(epochs_per_call):
+            if batches is None or reshuffle_inner:
+                batches = shuffle_batches(data, labels, B, shuffle, perm_gen,
+                                          n_true)
+            out = one_epoch(out[0], batches, drop_gen)
+        return out
+
+    return epoch
+
+
+def parity_bars(steps: int, lr: float = 1e-3) -> dict:
+    """The bounds two bf16-class epochs of `steps` Adam steps are held to
+    (those of the JAX package's epoch_parity_vs_xla). params: lr * max(8,
+    2 * steps), since near-zero gradients flip sign between two bf16-class
+    programs and each flip moves a weight by about one Adam step; layer-0
+    BN running mean: 6e-3; epoch loss and accuracy: 3e-2."""
+    return {"param": lr * max(8.0, 2.0 * steps), "bn_mean": 6e-3,
+            "loss": 3e-2, "acc": 3e-2}
+
+
+def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
+                          n_true: int) -> dict:
+    """Numeric check of the fused epoch against the plain epoch: one
+    dropout-0 epoch from the same init and the same permutation on both
+    (the plain arm on the bf16 model config, the kernel's class), comparing
+    params, BN means, loss and accuracy. The trainer runs it before it
+    trains with the fused epoch and raises if it fails.
+
+    Bars: `parity_bars`. `data` is (N_pad, in_dim) float32 on the device,
+    row padded to a multiple of `batch`; `labels` (N_pad,). Returns {"ok",
+    the deltas, the bars}."""
+    dev = data.device
+    cfg0 = dataclasses.replace(mcfg, dropout=(0.0,) * len(mcfg.dropout))
+    params, state = init_mlp(cfg0, _generator(dev, 7), device=dev)
+    spec = FusedStepSpec(cfg=cfg0, batch=batch, rho=0.1, pi_iters=4)
+    fs = pack_state(spec, params, state)
+
+    con = make_simple_norm_constraint(0.1, n_iter=4, pi_backend="plain")
+    opt = adam_optimizer(1e-3, "float32")
+    ep_plain = build_epoch_fn(cfg0.with_bf16(), opt, constraint=con.apply,
+                              batch_size=batch, epochs_per_call=1,
+                              reshuffle_inner=False)
+    px, sx, _, _, loss_x, acc_x = ep_plain(
+        params, state, opt.init(params), con.init(params), data, labels,
+        _generator(dev, 3), None, n_true)
+
+    ep_fused = build_fused_epoch_fn(spec, epochs_per_call=1,
+                                    reshuffle_inner=False)
+    fs2, loss_f, acc_f = ep_fused(fs, pad_features(spec, data), labels,
+                                  _generator(dev, 3), None, n_true)
+    pf, sf = unpack_params(spec, fs2)
+
+    def maxdiff(key):
+        return max(float(torch.max(torch.abs(a[key] - b[key])))
+                   for a, b in zip(pf["layers"], px["layers"]))
+
+    dw, db = maxdiff("w"), maxdiff("b")
+    dmu = float(torch.max(torch.abs(sf["layers"][0]["mean"]
+                                    - sx["layers"][0]["mean"])))
+    dloss = abs(float(loss_f) - float(loss_x))
+    dacc = abs(float(acc_f) - float(acc_x))
+    bars = parity_bars(data.shape[0] // batch)
+    ok = (dw < bars["param"] and db < bars["param"] and dmu < bars["bn_mean"]
+          and dloss < bars["loss"] and dacc < bars["acc"])
+    return {"ok": bool(ok), "max_dw": dw, "max_db": db, "max_dmu": dmu,
+            "dloss": dloss, "dacc": dacc, "tol_param": bars["param"],
+            "tol_bn_mean": bars["bn_mean"], "loss_fused": float(loss_f),
+            "loss_plain": float(loss_x)}

@@ -1,27 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on an NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc; imports nothing of JAX. Phases, each of
 which raises on failure (the exit code is then non-zero):
 
-  build    compile csrc/dft_power_mel.cu (K1) from the checkout, print the
-           build time and the compiler's register/shared-memory report;
+  build    compile csrc/dft_power_mel.cu (K1), product_power_iter.cu (K2) and
+           fused_epoch.cu (K3) from the checkout, one nvcc each, all started
+           together; print the build times and the compiler's
+           register/shared-memory reports;
   kernel   K1 (`mel_power_cuda`) against its plain fp32 twin and an f64
            chain on the card, both presets, B in {1, 3} (ragged row counts)
            and every bucket {16, 64, 256, 1024}; the full K1 MFCC against
-           the f64 oracle and tests/golden_mfcc.npz (5e-4);
-  serve    the main path: a digit_constrained InferenceEngine (full width,
+           the f64 oracle and tests/golden_mfcc.npz (5e-4). K2
+           (`product_spectral_norm_cuda`) against its twin at the digit
+           widths (n_iter 4 and 16, bf16 and fp32 matvecs) and against the
+           SVD of the product (a small stack at n_iter 64; an upper bound at
+           the digit widths);
+  serve    the serving path: a digit_constrained InferenceEngine (full width,
            seeded random weights) warms all four buckets and answers f32 and
            int16 requests of 5..1500 rows, checked against a plain on-card
            pipeline; int16 ingress must be bit-equal to f32 ingress; the K1
            launch count must equal the number of frontend calls. Then a
            speaker_constrained engine aggregates windows of a 6-s recording
            and classifies WAV files;
+  train    the training path. 16 566 + 2 048 + 1 024 seeded 1-s utterances
+           (10 classes; the class sets pitch and timbre) made on the card,
+           featurized by K1 in chunks of 1024 and standardized. K3
+           (`build_fused_epoch_call`) against its twin `fused_epoch_plain`
+           over one full-width 33-step epoch of that split, at dropout 0
+           and at the recipe's dropout (the shared hash), at the parity bars
+           and at a bar on the Adam moments that must pass the twin in
+           another summation order and fail a planted fault; then
+           `epoch_parity_vs_plain` must pass. A device-resident Trainer.fit of digit_constrained (batch
+           512, simple_norm rho 0.1, n_iter 16) for 40 epochs that must
+           resolve to K3 (replays = epochs + the parity check's one), lower
+           its loss, reach val accuracy > 0.2 and land the product norm
+           <= 1.5 rho; the same fit on the plain epoch within 0.15 val
+           accuracy; a streaming fit of 1 epoch launching K2 once per step;
+           evaluation and FGSM at eps 0.1;
   timing   K1 against its plain twin at the 1024-row buckets (CUDA events),
            the engine's warm p50/p95 per bucket and ingress dtype, and
-           beside each the request's host-to-device copy and K1 timed alone.
+           beside each the request's host-to-device copy and K1 timed alone;
+           K2 against its twin at n_iter 4 and 16; K3 per epoch against its
+           twin and against the plain epoch (fp32 and bf16), with K3's
+           TFLOP/s.
 
 The last lines are the kernel summary (JSON), the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -297,6 +322,392 @@ def serving_phase(dev, request_sizes=(5, 16, 100, 1024, 1500),
     return {"launches": launches, "max_probs_err": worst, "engine": eng}
 
 
+# -- kernel phase: K2, K3 -------------------------------------------------------
+
+def product_norm(ws) -> float:
+    """numpy SVD of W_m^T ... W_1^T in float64: the reference's formula."""
+    prod = None
+    for w in reversed([np.asarray(w, np.float64) for w in ws]):
+        prod = w.T if prod is None else prod @ w.T
+    return float(np.linalg.norm(prod, ord=2))
+
+
+def digit_kernels(dev, seed):
+    """Full-width digit_constrained kernels in the NonNeg range, and a start
+    vector, seeded."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.mlp import (
+        MLPConfig, dense_kernels, init_mlp)
+
+    cfg = MLPConfig.digit_constrained()
+    params, _ = init_mlp(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    u0 = torch.randn(cfg.n_classes, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(23))
+    return [w.abs() for w in dense_kernels(params)], u0
+
+
+def k2_phase(dev):
+    """K2 against its twin at the digit widths and against the SVD."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.spectral import (
+        product_spectral_norm_with_state)
+
+    eps = float(np.spacing(1.0))
+    ws, u0 = digit_kernels(dev, SEED + 20)
+    svd = product_norm([w.cpu().numpy() for w in ws])
+    out = {"max_abs_err": 0.0, "sigma_rel_err": 0.0}
+    for bf16 in (True, False):
+        for n_iter in (4, 16):
+            sig, u = product_spectral_norm_cuda(ws, u0, n_iter,
+                                                matvec_bf16=bf16)
+            torch.cuda.synchronize()
+            sig2, u2 = product_spectral_norm_with_state(
+                ws, u0, n_iter, eps,
+                matvec_dtype=torch.bfloat16 if bf16 else None)
+            rel = abs(float(sig) / float(sig2) - 1.0)
+            du = float((u - u2).abs().max())
+            print(f"kernel K2 digit {'bf16' if bf16 else 'fp32'} n_iter "
+                  f"{n_iter}: sigma {float(sig):.6e} vs twin "
+                  f"{float(sig2):.6e} (rel {rel:.2e}), max |du| {du:.2e}; "
+                  f"SVD {svd:.6e} (PI/SVD {float(sig) / svd:.6f})",
+                  flush=True)
+            bar = 5e-3 if bf16 else 1e-4
+            check(rel <= bar and du <= bar,
+                  f"K2 {bf16=} n_iter={n_iter} disagrees with its twin")
+            check(float(sig) <= 1.02 * svd, "K2 sigma above 1.02 x SVD")
+            if bf16:
+                out["max_abs_err"] = max(out["max_abs_err"], du)
+                out["sigma_rel_err"] = max(out["sigma_rel_err"], rel)
+    # the JAX suite's small stack at n_iter 64 against the SVD
+    rng = np.random.default_rng(0)
+    small = [rng.standard_normal(sh).astype(np.float32) * 0.5
+             for sh in [(20, 16), (16, 8), (8, 4)]]
+    want = product_norm(small)
+    u4 = torch.from_numpy(rng.standard_normal(4).astype(np.float32)).to(dev)
+    for bf16, rtol in ((True, 2e-2), (False, 1e-4)):
+        sig, _ = product_spectral_norm_cuda(
+            [torch.from_numpy(w).to(dev) for w in small], u4, 64,
+            matvec_bf16=bf16)
+        rel = abs(float(sig) / want - 1.0)
+        print(f"kernel K2 small stack {'bf16' if bf16 else 'fp32'} n_iter 64:"
+              f" sigma {float(sig):.6f} vs SVD {want:.6f} (rel {rel:.2e}, "
+              f"bar {rtol})", flush=True)
+        check(rel <= rtol, f"K2 small stack {bf16=} off the SVD")
+    return out
+
+
+# Adam moments of K3 against its twin after one epoch, as the largest
+# ||a - b|| / ||b|| over every weight's m and v and the stacked small
+# moments. Unlike the weights, the moments follow the gradients smoothly, so
+# this bar sits between the same-math readings (K3 5.2e-2, the twin with dX
+# summed in another order 2.3e-2) and a planted fault (BN backward without
+# its s2 term, 40; its weights stay inside the parameter bar) at the digit
+# recipe on an H100; the phase prints all three and PERF.md records them.
+MOMENT_BAR = 0.25
+_SMALL_MOMENTS = ("m_b", "v_b", "m_gamma", "v_gamma", "m_beta", "v_beta")
+
+
+def moment_err(f1, f2) -> float:
+    pairs = [(a, b) for k in ("mw", "vw") for a, b in zip(f1[k], f2[k])]
+    pairs += [(f1["small"][k], f2["small"][k]) for k in _SMALL_MOMENTS]
+    return max(float((a - b).norm() / b.norm()) for a, b in pairs
+               if float(b.norm()) > 0)
+
+
+def k3_phase(dev, split, batch=512):
+    """K3 against its twin over one full-width epoch of the training split
+    (standardized K1 features) from one packed state, at dropout 0 and at
+    the recipe's dropout; at dropout 0 also the moment bar's two readings
+    (the twin in another summation order, and a planted fault); then the
+    parity check the trainer runs. Returns the errors and the inputs for
+    the timing phase."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig, init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
+    from asr_using_robust_nn_tpu_torch.train.epoch_scan import shuffle_batches
+
+    class SplitSumOps(ct._PlainOps):
+        """The twin with dX summed in two halves: the same math in another
+        fp32 order."""
+
+        def gemm_dx(self, dzb, w16, out):
+            h = w16.shape[1] // 2
+            out.copy_(dzb[:, :h].float() @ w16[:, :h].float().T
+                      + dzb[:, h:].float() @ w16[:, h:].float().T)
+
+    class NoS2Ops(ct._PlainOps):
+        """A planted fault: BN backward without its x^ * s2 term."""
+
+        @staticmethod
+        def bn_dx(dxh, xh, wd, sd):
+            return sd * (dxh - wd * torch.sum(dxh, 0, keepdim=True))
+
+    cfg = MLPConfig.digit_constrained()
+    x, n_rows = pad_to_multiple(split["train"][0], batch)
+    y, _ = pad_to_multiple(split["train"][1], batch)
+    data = torch.from_numpy(x).to(dev)
+    labels = torch.from_numpy(y).to(dev)
+    params, state = init_mlp(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 31), device=dev)
+    steps = data.shape[0] // batch
+    out = {"max_abs_err": 0.0}
+    zero = (0.0,) * len(cfg.dropout)
+    for drop in (zero, cfg.dropout):
+        spec = ct.FusedStepSpec(cfg=dataclasses.replace(cfg, dropout=drop),
+                                batch=batch, rho=0.1, pi_iters=16)
+        fs = ct.pack_state(spec, params, state)
+        xs, ys, ws = shuffle_batches(
+            ct.pad_features(spec, data), labels, batch, True,
+            torch.Generator(device=dev).manual_seed(SEED + 32), n_rows)
+        seeds = torch.randint(
+            0, 2 ** 31 - 1, (steps,), dtype=torch.int32, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 33))
+        bars = ct.parity_bars(steps)
+        tol = bars["param"]
+        args = (fs, xs, ys[:, :, None], ws[:, :, None], seeds)
+        run = ct.build_fused_epoch_call(spec, steps)
+        f1, l1, a1 = run(*args)
+        torch.cuda.synchronize()
+        f2, l2, a2 = ct.fused_epoch_plain(spec, *args)
+        (p1, s1), (p2, s2) = ct.unpack_params(spec, f1), ct.unpack_params(
+            spec, f2)
+
+        def dmax(a, b, key):
+            return max(float((x[key] - y[key]).abs().max())
+                       for x, y in zip(a["layers"], b["layers"]) if key in x)
+
+        ns = args[3][:, :, 0].sum(1, keepdim=True)  # true rows per step
+
+        def mean(v):
+            return float((v * ns).sum() / ns.sum())
+
+        # the bars read what epoch_parity reads: params of every layer, the
+        # first layer's BN running mean, the epoch-mean loss and accuracy;
+        # the per-layer and per-step maxima are printed beside them
+        d = {"dw": dmax(p1, p2, "w"), "db": dmax(p1, p2, "b"),
+             "dgamma": dmax(p1, p2, "gamma"), "dbeta": dmax(p1, p2, "beta"),
+             "dmu": float((s1["layers"][0]["mean"]
+                           - s2["layers"][0]["mean"]).abs().max()),
+             "dmu_any_layer": dmax(s1, s2, "mean"),
+             "dvar_any_layer": dmax(s1, s2, "var"),
+             "dloss": abs(mean(l1) - mean(l2)),
+             "dacc": abs(mean(a1) - mean(a2)),
+             "dloss_any_step": float((l1 - l2).abs().max()),
+             "dacc_any_step": float((a1 - a2).abs().max()),
+             "du": float((f1["u"] - f2["u"]).abs().max()),
+             "dmw": max(float((x - y).abs().max())
+                        for x, y in zip(f1["mw"], f2["mw"])),
+             "moments_rel": moment_err(f1, f2),
+             "count": (int(f1["count"][0]), int(f2["count"][0]))}
+        what = f"dropout {drop[0]}"
+        print(f"kernel K3 digit {steps} steps {what}: "
+              + ", ".join(f"{k} {v:.3e}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in d.items())
+              + f"; loss first/last {float(l1[0]):.4f}/{float(l1[-1]):.4f} "
+              f"(twin {float(l2[0]):.4f}/{float(l2[-1]):.4f}); bars {bars}",
+              flush=True)
+        if drop == zero:  # the moment bar's two readings, on the twin
+            f3 = ct.fused_epoch_plain(spec, *args, ops=SplitSumOps(spec))[0]
+            f4 = ct.fused_epoch_plain(spec, *args, ops=NoS2Ops(spec))[0]
+            p4, _ = ct.unpack_params(spec, f4)
+            r = {"other_order": moment_err(f3, f2),
+                 "planted_fault": moment_err(f4, f2),
+                 "planted_fault_dw": dmax(p4, p2, "w")}
+            print(f"kernel K3 moment bar {MOMENT_BAR}: K3 "
+                  f"{d['moments_rel']:.3e}, twin in another order "
+                  f"{r['other_order']:.3e}, planted fault (no s2) "
+                  f"{r['planted_fault']:.3e} (its |dw| "
+                  f"{r['planted_fault_dw']:.3e}, param bar {tol:.3e})",
+                  flush=True)
+            check(r["other_order"] < MOMENT_BAR,
+                  "the moment bar fails the twin in another order")
+            check(r["planted_fault"] > MOMENT_BAR,
+                  "the moment bar passes a planted fault")
+            out["moment_bar"] = dict(r, bar=MOMENT_BAR)
+        check(d["dw"] < tol and d["db"] < tol and d["dgamma"] < tol
+              and d["dbeta"] < tol, f"K3 params off the twin ({what})")
+        check(d["dmu"] < bars["bn_mean"], f"K3 BN means off the twin ({what})")
+        check(d["dloss"] < bars["loss"] and d["dacc"] < bars["acc"],
+              f"K3 loss/accuracy off the twin ({what})")
+        check(d["moments_rel"] < MOMENT_BAR,
+              f"K3 Adam moments off the twin ({what})")
+        check(d["count"] == (steps, steps), "K3 Adam count")
+        out["max_abs_err"] = max(out["max_abs_err"], d["dw"], d["db"])
+        out[what] = d
+    # time the recipe: its dropout
+    out["timing_args"] = (spec, run, args, data, labels, n_rows, params,
+                          state)
+    gate = ct.epoch_parity_vs_plain(cfg, batch, data, labels, n_rows)
+    print(f"kernel K3 epoch_parity_vs_plain: {gate}", flush=True)
+    check(gate["ok"], "epoch_parity_vs_plain failed")
+    out["parity"] = gate
+    return out
+
+
+# -- training phase -------------------------------------------------------------
+
+def synth_class_waves(labels, seed, device, width=22050):
+    """Seeded 1-s utterances, made on `device`: one 0.3-0.5 s voiced burst
+    (sin^2 onset and offset, anywhere in the second) whose class sets both
+    the pitch, a glide around 300 * 1.25**c Hz with a random slope of +-30 %
+    over the second, and the timbre, the harmonic (1..5) that carries most
+    energy; random loudness within 6 dB, in low noise of a random level."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = len(labels)
+    lab = torch.as_tensor(labels, device=device).float()[:, None]
+
+    def uni(lo, hi):
+        return lo + (hi - lo) * torch.rand((n, 1), generator=g, device=device)
+
+    t = torch.arange(width, device=device)[None, :] / 22050.0
+    f0 = 300.0 * 1.25 ** lab * uni(0.97, 1.03)
+    slope = uni(-0.3, 0.3)
+    phase = 2 * np.pi * f0 * (t + 0.5 * slope * (t * t - t)) + uni(0, 6.3)
+    k = torch.arange(1, 7, device=device).float()[None, :, None]
+    weight = torch.exp(-((k - 1 - (lab[:, :, None] % 5)) ** 2) / 2.0)
+    tone = (weight * torch.sin(k * phase[:, None, :])).sum(1)
+    on, dur = uni(0.05, 0.45), uni(0.3, 0.5)
+    env = torch.sin(np.pi * ((t - on) / dur).clamp(0.0, 1.0)) ** 2
+    noise = uni(1e-3, 5e-3) * torch.randn((n, width), generator=g,
+                                          device=device)
+    return uni(0.2, 0.4) * env * tone + noise
+
+
+def featurize_phase(dev, sizes=(16566, 2048, 1024), chunk=1024):
+    """The training path's data: seeded tone utterances featurized by K1 in
+    chunks, standardized with the fit-on-all scaler. -> {"train", "val",
+    "test": (x float32, labels int64)}, and the K1 launch count."""
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.frontend.mfcc import Frontend
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+
+    rng = np.random.default_rng(SEED + 40)
+    labels = [rng.integers(0, 10, n) for n in sizes]
+    mel_power_cuda.launches = 0  # the training path starts here
+    t0 = time.perf_counter()
+    fe = Frontend(FrontendConfig.digit(), backend="cuda", device=dev)
+    feats, calls = [], 0
+    for k, lab in enumerate(labels):
+        parts = []
+        for i in range(0, len(lab), chunk):
+            waves = synth_class_waves(lab[i: i + chunk],
+                                      SEED + 1000 * (k + 1) + i, dev)
+            parts.append(fe.flat(waves).cpu().numpy().astype(np.float64))
+            calls += 1
+        feats.append(np.concatenate(parts))
+    k1 = mel_power_cuda.launches
+    check(k1 == calls, f"K1 launched {k1} times for {calls} frontend calls")
+    xs = [a.astype(np.float32) for a in standardize_fit_all(*feats)[:3]]
+    check(all(np.isfinite(a).all() for a in xs), "non-finite features")
+    print(f"train featurize: {sum(sizes)} utterances in {calls} K1 calls "
+          f"({k1} launches), {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"train": (xs[0], labels[0]), "val": (xs[1], labels[1]),
+            "test": (xs[2], labels[2]), "k1_launches": k1}
+
+
+def train_phase(dev, split, epochs=40, batch=512, epoch_backend="auto"):
+    """The training path on the featurized split: fit device-resident on K3
+    (K2 inside), on the plain epoch, streaming with K2, then evaluate and
+    attack."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.attacks import fgsm
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
+    from asr_using_robust_nn_tpu_torch.models.mlp import (
+        MLPConfig, apply_mlp, dense_kernels, init_mlp)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_train import (
+        build_fused_epoch_call)
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        TrainConfig, Trainer)
+
+    (tr_x, tr_y), (va_x, va_y), (te_x, te_y) = (
+        split[k] for k in ("train", "val", "test"))
+    cfg = MLPConfig.digit_constrained()
+    rho = 0.1
+    con = make_simple_norm_constraint(rho)  # n_iter 16, the CLI's default
+    p0, s0 = init_mlp(cfg, torch.Generator(device=dev).manual_seed(SEED + 41),
+                      device=dev)
+    cs0 = con.init(p0)
+
+    def fit(backend, resident=True, n_epochs=epochs):
+        t = Trainer(cfg, TrainConfig(
+            batch_size=batch, epochs=n_epochs, patience=n_epochs, seed=SEED,
+            device_resident=resident, epoch_backend=backend),
+            constraint=con.apply, constraint_state=cs0, device=dev)
+        t1 = time.perf_counter()
+        res = t.fit(tr_x, tr_y, va_x, va_y, params=p0, state=s0)
+        torch.cuda.synchronize()
+        return t, res, time.perf_counter() - t1
+
+    build_fused_epoch_call.launches = 0  # the resident fit starts here
+    tr_k3, res, sec = fit(epoch_backend)
+    k3 = build_fused_epoch_call.launches
+    h = res["history"]
+    sigma = product_norm([w.numpy() for w in dense_kernels(
+        res["best_params"])])
+    print(f"train resident ({epoch_backend} -> "
+          f"{'K3' if tr_k3._resolve_epoch_backend(True) else 'plain'}): "
+          f"{res['epochs_run']} epochs in {sec:.2f} s (parity check "
+          f"included), loss {[round(v, 4) for v in h['loss']]}, val_acc "
+          f"{[round(v, 4) for v in h['val_acc']]}, K3 replays {k3}, product "
+          f"norm of best params {sigma:.5f} (rho {rho})", flush=True)
+    check(tr_k3._resolve_epoch_backend(True), "auto did not resolve to K3")
+    check(k3 == res["epochs_run"] + 1,
+          f"K3 replayed {k3} times for {res['epochs_run']} epochs + 1")
+    check(h["loss"][-1] < h["loss"][0], "training loss did not fall")
+    check(h["val_acc"][-1] > 0.2, f"val accuracy {h['val_acc'][-1]}")
+    check(sigma <= 1.5 * rho, f"product norm {sigma} above 1.5 rho")
+
+    _, res_pl, sec_pl = fit("plain")
+    acc_k3, acc_pl = h["val_acc"][-1], res_pl["history"]["val_acc"][-1]
+    print(f"train resident plain epoch: {sec_pl:.2f} s, loss "
+          f"{[round(v, 4) for v in res_pl['history']['loss']]}, val_acc "
+          f"{acc_pl:.4f} vs K3 {acc_k3:.4f}", flush=True)
+    check(abs(acc_pl - acc_k3) < 0.15, "K3 and plain fits disagree")
+
+    product_spectral_norm_cuda.launches = 0  # the streaming fit starts here
+    _, res_s, sec_s = fit("auto", resident=False, n_epochs=1)
+    k2 = product_spectral_norm_cuda.launches
+    print(f"train streaming: {res_s['steps']} steps in {sec_s:.2f} s, loss "
+          f"{res_s['history']['loss'][0]:.4f}, val_acc "
+          f"{res_s['history']['val_acc'][0]:.4f}, K2 launches {k2}",
+          flush=True)
+    check(k2 == res_s["steps"] == -(-len(tr_x) // batch),
+          f"K2 launched {k2} times in {res_s['steps']} steps")
+
+    bp, bs = params_from_numpy(res["best_params"], res["best_state"],
+                               device=dev)
+    loss, acc = tr_k3.evaluate(bp, bs, te_x, te_y)
+    x = torch.from_numpy(te_x).to(dev)
+    y = torch.from_numpy(te_y).to(dev)
+    logits_fn = lambda xx: apply_mlp(cfg, bp, bs, xx)[0]  # noqa: E731
+    adv = fgsm(logits_fn, x, y, 0.1)
+    with torch.no_grad():
+        adv_acc = float((logits_fn(adv).argmax(-1) == y).float().mean())
+    print(f"train evaluate test: loss {loss:.4f} acc {acc:.4f}; FGSM eps 0.1 "
+          f"acc {adv_acc:.4f}", flush=True)
+    check(np.isfinite(loss) and adv.shape == x.shape
+          and bool(torch.isfinite(adv).all()), "evaluate/FGSM output")
+    check(adv_acc <= acc + 0.01, "FGSM raised the accuracy")
+    return {"k2_launches": k2, "k3_launches": k3,
+            "loss": h["loss"], "val_acc": acc_k3, "plain_val_acc": acc_pl,
+            "test_acc": acc, "fgsm_acc": adv_acc, "product_norm": sigma,
+            "fit_s": sec, "plain_fit_s": sec_pl, "streaming_fit_s": sec_s}
+
+
 # -- timing phase -------------------------------------------------------------
 
 def time_ms(fn, reps):
@@ -378,6 +789,104 @@ def timing_phase(dev, eng, batch=1024, reps=5, requests=20):
     return out
 
 
+# true digit widths: per step 2*B*sum(d_i d_i+1) forward, as much for dW,
+# and 2*B*sum_{i>=1}(d_i d_i+1) for dX (layer 0 needs none)
+DIGIT_DIMS = (880, 1024, 512, 256, 128, 64, 10)
+H100_BF16_DENSE_TFLOPS = 989.0
+
+
+def step_flop(batch, dims=DIGIT_DIMS):
+    links = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    return 2 * batch * (2 * sum(links) + sum(links[1:]))
+
+
+def train_timing_phase(dev, k3_args, reps=5):
+    """K2 against its twin, and K3 per epoch against its twin and the plain
+    epoch (fp32 and bf16), plain/kernel/kernel/plain after a warm call."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_train import fused_epoch_plain
+    from asr_using_robust_nn_tpu_torch.ops.spectral import (
+        product_spectral_norm_with_state)
+    from asr_using_robust_nn_tpu_torch.train.epoch_scan import build_epoch_fn
+    from asr_using_robust_nn_tpu_torch.train.trainer import adam_optimizer
+
+    card = card_line()
+    out = {}
+
+    def paired(k, p):
+        k(), p()
+        t = [time_ms(p, reps), time_ms(k, reps), time_ms(k, reps),
+             time_ms(p, reps)]
+        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+    eps = float(np.spacing(1.0))
+    ws, u0 = digit_kernels(dev, SEED + 20)
+    for n_iter in (4, 16):
+        k_ms, p_ms, t = paired(
+            lambda n=n_iter: product_spectral_norm_cuda(ws, u0, n),
+            lambda n=n_iter: product_spectral_norm_with_state(
+                ws, u0, n, eps, matvec_dtype=torch.bfloat16))
+        out[f"k2_n{n_iter}"] = {"ms": k_ms, "plain_ms": p_ms, "runs_ms": t}
+        print(f"time K2 digit bf16 n_iter {n_iter} "
+              f"({2 * 6 * (n_iter + 1)} links): kernel {k_ms:.3f} ms, twin "
+              f"{p_ms:.3f} ms (runs p,k,k,p {[round(x, 3) for x in t]}); "
+              f"card {card}", flush=True)
+
+    spec, run, args, data, labels, n_true, params, state = k3_args
+    steps = args[1].shape[0]
+    k_ms, p_ms, t = paired(lambda: run(*args),
+                           lambda: fused_epoch_plain(spec, *args))
+    flop = step_flop(spec.batch) * steps
+    tflops = flop / k_ms / 1e9
+    check(tflops < H100_BF16_DENSE_TFLOPS, f"K3 at {tflops} TFLOP/s is "
+          f"above the H100's dense bf16 peak: a timing error")
+    out["k3"] = {"ms": k_ms, "plain_ms": p_ms, "runs_ms": t,
+                 "gflop": flop / 1e9, "tflops": tflops}
+    print(f"time K3 digit epoch ({steps} steps of {spec.batch}, dropout "
+          f"{spec.cfg.dropout[0]}): kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms "
+          f"(runs p,k,k,p {[round(x, 3) for x in t]}); {flop / 1e9:.1f} GFLOP"
+          f" -> {tflops:.2f} TFLOP/s; card {card}", flush=True)
+    con = make_simple_norm_constraint(spec.rho, n_iter=spec.pi_iters)
+    opt = adam_optimizer(spec.lr)
+    for name, cfg in (("fp32", spec.cfg), ("bf16", spec.cfg.with_bf16())):
+        ep = build_epoch_fn(cfg, opt, con.apply, batch_size=spec.batch)
+
+        def plain(ep=ep):
+            return ep(params, state, opt.init(params), con.init(params),
+                      data, labels,
+                      torch.Generator(device=dev).manual_seed(SEED), None,
+                      n_true)
+
+        plain()
+        ms = (time_ms(plain, reps) + time_ms(plain, reps)) / 2
+        out[f"epoch_program_{name}"] = {"ms": ms}
+        print(f"time plain epoch (epoch_program, autograd, {name} GEMMs, "
+              f"projection by K2, dropout on): {ms:.3f} ms vs K3 {k_ms:.3f} "
+              f"ms; card {card}", flush=True)
+    return out
+
+
+def build_all():
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from asr_using_robust_nn_tpu_torch.ops._build import (
+        build_log, load_library)
+
+    names = ("dft_power_mel", "product_power_iter", "fused_epoch")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(load_library, names))
+    print(f"build: {', '.join(n + '.cu' for n in names)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for n in names:
+        print(build_log(n), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -386,8 +895,7 @@ def main() -> int:
               "False); nothing runs on the CPU", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from asr_using_robust_nn_tpu_torch.ops._build import (
-        build_log, load_library)
+    from asr_using_robust_nn_tpu_torch.ops import cuda_spectral, cuda_train
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import KERNEL_SOURCE
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
@@ -397,17 +905,20 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
-    t0 = time.perf_counter()
-    load_library("dft_power_mel")
-    print(f"build: dft_power_mel.cu in {time.perf_counter() - t0:.2f} s\n"
-          f"{build_log('dft_power_mel')}", flush=True)
+    build_all()
 
     kern = kernel_phase(dev)
+    k2 = k2_phase(dev)
     serve = serving_phase(dev)
+    split = featurize_phase(dev)
+    k3 = k3_phase(dev, split)
+    train = train_phase(dev, split)
     timing = timing_phase(dev, serve.pop("engine"))
+    ttime = train_timing_phase(dev, k3.pop("timing_args"))
     kernels = [{
         "name": "dft_power_mel", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": serve["launches"],
+        "train_launches": split["k1_launches"],
         "max_abs_err": kern["max_abs_err"],
         "max_rel_err": kern["max_rel_err"],
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain: "
@@ -416,13 +927,42 @@ def main() -> int:
         "shape": "digit bucket 1024 (45056 frames x 2048)",
         "speaker_ms": timing["speaker"]["ms"],
         "speaker_plain_ms": timing["speaker"]["plain_ms"],
+    }, {
+        "name": "product_power_iter", "route": "cuda",
+        "source": cuda_spectral.KERNEL_SOURCE,
+        "replaces": cuda_spectral.REPLACES,
+        "launches": train["k2_launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "sigma_rel_err": k2["sigma_rel_err"],
+        "tolerance": "vs twin: sigma rtol 5e-3, u atol 5e-3 (bf16); 1e-4 "
+                     "(fp32); vs SVD: rtol 2e-2 bf16 / 1e-4 fp32 (small "
+                     "stack), sigma <= 1.02 SVD (digit)",
+        "ms": ttime["k2_n16"]["ms"], "plain_ms": ttime["k2_n16"]["plain_ms"],
+        "shape": "digit 880x1024..64x10, bf16, n_iter 16",
+        "n_iter4_ms": ttime["k2_n4"]["ms"],
+        "n_iter4_plain_ms": ttime["k2_n4"]["plain_ms"],
+    }, {
+        "name": "fused_epoch", "route": "cuda",
+        "source": cuda_train.KERNEL_SOURCE, "replaces": cuda_train.REPLACES,
+        "launches": train["k3_launches"],
+        "max_abs_err": k3["max_abs_err"],
+        "tolerance": "vs twin after one epoch: params < lr*max(8, 2*steps), "
+                     "layer-0 BN mean < 6e-3, epoch loss/acc < 3e-2, Adam "
+                     f"moments rel < {MOMENT_BAR}",
+        "ms": ttime["k3"]["ms"], "plain_ms": ttime["k3"]["plain_ms"],
+        "shape": "digit epoch: 33 steps x 512 rows, 896..128 padded",
+        "tflops": ttime["k3"]["tflops"],
+        "epoch_program_fp32_ms": ttime["epoch_program_fp32"]["ms"],
+        "epoch_program_bf16_ms": ttime["epoch_program_bf16"]["ms"],
     }]
     print(json.dumps({"engine_latency_ms": {
         k: {m: v[m] for m in ("p50_ms", "p95_ms")}
         for k, v in timing["engine"].items()},
         "engine_layers_ms": timing["layers"],
         "mfcc_err": {k: v for k, v in kern.items() if k.startswith("mfcc")},
-        "max_probs_err": serve["max_probs_err"]}))
+        "max_probs_err": serve["max_probs_err"],
+        "train": train,
+        "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,144 @@
+"""The port's simple_norm projection and K2's plain twin
+(asr_using_robust_nn_tpu_torch/constraints, ops/spectral.py,
+ops/cuda_spectral.py) against the JAX package: the same numpy kernels and
+start vector through both.
+
+K2 itself runs only on a card and is held against its twin by
+`chip_smoke.py`; on CPU tensors its wrapper is the twin, which is what these
+tests reach.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from asr_using_robust_nn_tpu.constraints import (
+    make_simple_norm_constraint as jmake)
+from asr_using_robust_nn_tpu.models import mlp as jmlp
+from asr_using_robust_nn_tpu.ops.pallas_spectral import (
+    product_spectral_norm_pallas)
+from asr_using_robust_nn_tpu.ops.spectral import (
+    product_spectral_norm_with_state as jpsn)
+from asr_using_robust_nn_tpu_torch.constraints import (
+    make_simple_norm_constraint)
+from asr_using_robust_nn_tpu_torch.models.convert import (
+    cstate_from_numpy, cstate_to_numpy, params_from_numpy, params_to_numpy)
+from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+    product_spectral_norm_cuda)
+from asr_using_robust_nn_tpu_torch.ops.spectral import (
+    product_spectral_norm_with_state)
+
+from conftest import product_norm_oracle
+
+EPS = float(np.spacing(1.0))
+
+
+def _stack(rng):
+    """The JAX suite's stack (tests/test_constraints.py::TestPallasPI)."""
+    return [rng.standard_normal(s).astype(np.float32) * 0.5
+            for s in [(20, 16), (16, 8), (8, 4)]]
+
+
+def _u0(n=4):
+    return np.asarray(jax.random.normal(jax.random.PRNGKey(23), (n,),
+                                        jnp.float32))
+
+
+@pytest.mark.parametrize("n_iter", [1, 8, 64])
+def test_bf16_twin_matches_pallas_and_xla(rng, n_iter):
+    """bf16 matvecs: sigma rtol 5e-3 and u atol 5e-3 against both JAX
+    forms (the JAX suite's Pallas-vs-XLA bar: bf16 accumulation order)."""
+    ws = _stack(rng)
+    u0 = _u0()
+    sig, u = product_spectral_norm_with_state(
+        [torch.from_numpy(w) for w in ws], torch.from_numpy(u0),
+        n_iter=n_iter, eps=EPS, matvec_dtype=torch.bfloat16)
+    sig_p, u_p = product_spectral_norm_pallas(
+        [jnp.asarray(w) for w in ws], jnp.asarray(u0), n_iter=n_iter,
+        matvec_bf16=True, interpret=True)
+    sig_x, u_x = jpsn([jnp.asarray(w) for w in ws], jnp.asarray(u0),
+                      n_iter=n_iter, eps=EPS, matvec_dtype=jnp.bfloat16)
+    for s_ref, u_ref in ((sig_p, u_p), (sig_x, u_x)):
+        np.testing.assert_allclose(float(sig), float(s_ref), rtol=5e-3)
+        np.testing.assert_allclose(u.numpy(), np.asarray(u_ref), atol=5e-3)
+
+
+def test_f32_twin_matches_oracle_and_xla(rng):
+    ws = _stack(rng)
+    sig, u = product_spectral_norm_with_state(
+        [torch.from_numpy(w) for w in ws], torch.from_numpy(_u0()),
+        n_iter=64, eps=EPS)
+    np.testing.assert_allclose(float(sig), product_norm_oracle(ws), rtol=1e-4)
+    np.testing.assert_allclose(float(torch.linalg.norm(u)), 1.0, rtol=1e-5)
+    sig_x, u_x = jpsn([jnp.asarray(w) for w in ws], jnp.asarray(_u0()),
+                      n_iter=64, eps=EPS)
+    np.testing.assert_allclose(float(sig), float(sig_x), rtol=1e-5)
+    np.testing.assert_allclose(u.numpy(), np.asarray(u_x), atol=1e-5)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_cuda_wrapper_runs_twin_on_cpu(rng, bf16):
+    ws = [torch.from_numpy(w) for w in _stack(rng)]
+    u0 = torch.from_numpy(_u0())
+    before = product_spectral_norm_cuda.launches
+    got = product_spectral_norm_cuda(ws, u0, n_iter=8, matvec_bf16=bf16)
+    want = product_spectral_norm_with_state(
+        ws, u0, n_iter=8, eps=EPS,
+        matvec_dtype=torch.bfloat16 if bf16 else None)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert product_spectral_norm_cuda.launches == before  # nothing launched
+    if bf16:  # the oracle at many rounds, bf16 class
+        s, _ = product_spectral_norm_cuda(ws, u0, n_iter=64)
+        np.testing.assert_allclose(float(s), product_norm_oracle(
+            [w.numpy() for w in ws]), rtol=2e-2)
+
+
+def _small_params(seed):
+    cfg = jmlp.MLPConfig(in_dim=20, n_classes=4, hidden=(32, 16),
+                         nonneg=True, dropout=(0.0, 0.0))
+    p, s = jax.tree_util.tree_map(
+        np.asarray, jmlp.init_mlp(cfg, jax.random.PRNGKey(seed)))
+    for layer in p["layers"]:
+        layer["w"] = np.abs(layer["w"]) * 1.7  # product norm well above rho
+    return p, s
+
+
+@pytest.mark.parametrize("affected", [(), (0, 2)])
+@pytest.mark.parametrize("n_iter", [4, 16])
+def test_simple_norm_apply_matches_jax(affected, n_iter):
+    """One projection at fp32 matvecs: params within 2e-4 (the port's
+    constraint bar, ROADMAP.md) and the carried u alike."""
+    jp, js = _small_params(seed=n_iter + len(affected))
+    jc = jmake(0.5, affected_layers_indices=affected, n_iter=n_iter)
+    jcs = jc.init(jp)
+    jp2, jcs2 = jc.apply(jax.tree_util.tree_map(jnp.asarray, jp), jcs)
+    c = make_simple_norm_constraint(0.5, affected_layers_indices=affected,
+                                    n_iter=n_iter, pi_backend="plain")
+    params, _ = params_from_numpy(jp, js)
+    p2, cs2 = c.apply(params, cstate_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jcs)))
+    got, _ = params_to_numpy(p2, {"layers": []})
+    for a, b in zip(got["layers"], jp2["layers"]):
+        np.testing.assert_allclose(a["w"], np.asarray(b["w"]), atol=2e-4,
+                                   rtol=2e-4)
+    np.testing.assert_allclose(cstate_to_numpy(cs2)["u"],
+                               np.asarray(jcs2["u"]), atol=1e-5)
+    assert c.apply._asrtpu_kind == "simple_norm"
+    assert c.apply._asrtpu_meta == jc.apply._asrtpu_meta
+
+
+def test_backends_agree_on_cpu_and_bad_backend_raises():
+    jp, js = _small_params(seed=1)
+    params, _ = params_from_numpy(jp, js)
+    outs = []
+    for backend in ("auto", "plain", "cuda"):
+        c = make_simple_norm_constraint(0.5, n_iter=8, pi_backend=backend)
+        p2, _ = c.apply(params, c.init(params))
+        outs.append([layer["w"] for layer in p2["layers"]])
+    for ws in outs[1:]:
+        for a, b in zip(outs[0], ws):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        make_simple_norm_constraint(0.5, pi_backend="xla")

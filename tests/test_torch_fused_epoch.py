@@ -1,0 +1,361 @@
+"""The port's fused epoch (asr_using_robust_nn_tpu_torch/ops/cuda_train.py)
+against the JAX package's Pallas epoch kernel run in interpret mode on the
+CPU: the packed state, K3's plain twin `fused_epoch_plain`, the dropout hash,
+the parity check and the trainer's backend choice.
+
+States cross between the packages with `models/convert.py`; inputs are
+seeded numpy arrays given to both. K3 itself runs only on a card and is held
+against the twin by `chip_smoke.py`.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from asr_using_robust_nn_tpu.models import mlp as jmlp
+from asr_using_robust_nn_tpu.ops import pallas_train as jpt
+from asr_using_robust_nn_tpu_torch.constraints import (
+    make_simple_norm_constraint)
+from asr_using_robust_nn_tpu_torch.models import mlp
+from asr_using_robust_nn_tpu_torch.models.convert import (
+    adam_state_to_numpy, fstate_from_numpy, fstate_to_numpy,
+    params_from_numpy)
+from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
+from asr_using_robust_nn_tpu_torch.train.trainer import (
+    TrainConfig, Trainer, adam_optimizer)
+
+from conftest import blobs_task
+
+KW = dict(in_dim=20, n_classes=4, hidden=(32, 16), nonneg=True,
+          dropout=(0.0, 0.0))
+
+
+def _specs(rho=0.5, batch=64, pallas_relu_mask=False, **kw):
+    cfg_kw = dict(KW, **kw)
+    jspec = jpt.FusedStepSpec(cfg=jmlp.MLPConfig(**cfg_kw), batch=batch,
+                              rho=rho, pi_iters=8, interpret=True)
+    spec = ct.FusedStepSpec(cfg=mlp.MLPConfig(**cfg_kw), batch=batch,
+                            rho=rho, pi_iters=8,
+                            pallas_relu_mask=pallas_relu_mask)
+    return jspec, spec
+
+
+def _jax_init(jspec, seed=0):
+    return jax.tree_util.tree_map(
+        np.asarray, jmlp.init_mlp(jspec.cfg, jax.random.PRNGKey(seed)))
+
+
+def _epoch_inputs(rng, spec, n_batches, ragged=0):
+    """(xs, ys, ws, seeds) as numpy: feature-padded batches, the last
+    `ragged` rows of the last batch weighted 0 and filled with poison."""
+    B, pd0 = spec.batch, spec.pdims[0]
+    x, y = blobs_task(rng, n=n_batches * B, d=spec.dims[0],
+                      k=spec.dims[-1])
+    xs = np.zeros((n_batches, B, pd0), np.float32)
+    xs[..., : spec.dims[0]] = x.reshape(n_batches, B, -1)
+    ws = np.ones((n_batches, B, 1), np.float32)
+    if ragged:
+        ws[-1, -ragged:] = 0.0
+        xs[-1, -ragged:, : spec.dims[0]] = 1e3
+    ys = y.reshape(n_batches, B, 1).astype(np.int32)
+    seeds = rng.integers(0, 2 ** 31 - 1, n_batches).astype(np.int32)
+    return xs, ys, ws, seeds
+
+
+def _run_both(jspec, spec, fs_np, xs, ys, ws, seeds):
+    jrun = jpt.build_fused_epoch_call(jspec, xs.shape[0])
+    jfs, jl, ja = jrun(jax.tree_util.tree_map(jnp.asarray, fs_np),
+                       jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(ws),
+                       jnp.asarray(seeds))
+    run = ct.build_fused_epoch_call(spec, xs.shape[0])
+    fs, losses, accs = run(fstate_from_numpy(fs_np),
+                           *(torch.from_numpy(a) for a in (xs, ys, ws, seeds)))
+    return (jax.tree_util.tree_map(np.asarray, jfs), np.asarray(jl),
+            np.asarray(ja), fs, losses.numpy(), accs.numpy())
+
+
+def test_pack_unpack_round_trip_matches_jax():
+    jspec, spec = _specs()
+    jp, js = _jax_init(jspec, seed=1)
+    rng = np.random.default_rng(1)
+    for p, s in zip(jp["layers"][:-1], js["layers"][:-1]):
+        p["gamma"] = (0.5 + rng.random(p["b"].shape)).astype(np.float32)
+        p["beta"] = rng.standard_normal(p["b"].shape).astype(np.float32)
+        s["mean"] = rng.random(p["b"].shape).astype(np.float32)
+    jfs = jax.tree_util.tree_map(np.asarray, jpt.pack_state(jspec, jp, js))
+    params, state = params_from_numpy(jp, js)
+    fs = ct.pack_state(spec, params, state)
+    got = fstate_to_numpy(fs)
+    for k in ("masters", "w16", "mw", "vw"):
+        for a, b in zip(got[k], jfs[k]):
+            np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+    for k in jfs["small"]:
+        np.testing.assert_array_equal(got["small"][k], jfs["small"][k])
+    np.testing.assert_array_equal(got["scales"], jfs["scales"])
+    np.testing.assert_array_equal(got["count"], jfs["count"])
+    assert got["u"].shape == jfs["u"].shape  # drawn anew; crosses by convert
+    # unpack from a JAX-packed state carried across, scales folded
+    jfs["scales"] = np.asarray(jfs["scales"]).copy()
+    jfs["scales"][0, :3] = (0.5, 2.0, 0.25)
+    fs = fstate_from_numpy(jfs)
+    pp, ss = ct.unpack_params(spec, fs)
+    jpp, jss = jpt.unpack_params(jspec, jax.tree_util.tree_map(jnp.asarray,
+                                                               jfs))
+    for a, b in zip(jax.tree_util.tree_leaves((pp, ss)),
+                    jax.tree_util.tree_leaves((jpp, jss))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_unpack_opt_state_matches_jax():
+    jspec, spec = _specs()
+    jp, js = _jax_init(jspec, seed=2)
+    jfs = jax.tree_util.tree_map(np.asarray, jpt.pack_state(jspec, jp, js))
+    rng = np.random.default_rng(2)
+    jfs["mw"] = tuple(rng.standard_normal(a.shape).astype(np.float32)
+                      for a in jfs["mw"])
+    jfs["vw"] = tuple(rng.random(a.shape).astype(np.float32)
+                      for a in jfs["vw"])
+    jfs["small"] = {k: rng.random(v.shape).astype(np.float32)
+                    for k, v in jfs["small"].items()}
+    jfs["count"] = np.array([7], np.int32)
+    from asr_using_robust_nn_tpu.train.trainer import (
+        adam_optimizer as jadam)
+
+    jfs_j = jax.tree_util.tree_map(jnp.asarray, jfs)
+    jpp, _ = jpt.unpack_params(jspec, jfs_j)
+    jo = jpt.unpack_opt_state(jspec, jfs_j, jadam(1e-3), jpp)[0]
+    fs = fstate_from_numpy(jfs)
+    pp, _ = ct.unpack_params(spec, fs)
+    count, mu, nu = adam_state_to_numpy(
+        ct.unpack_opt_state(spec, fs, adam_optimizer(1e-3), pp))
+    assert int(count) == int(jo.count) == 7
+    for a, b in zip(jax.tree_util.tree_leaves((mu, nu)),
+                    jax.tree_util.tree_leaves((jo.mu, jo.nu))):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("bn", [True, False])
+def test_fused_epoch_plain_matches_jax_interpret(bn):
+    """Two steps at rho 0.5, dropout 0, from one JAX-packed state (u
+    included) on identical batches, with the Pallas kernel's ReLU mask.
+    Bounds are the JAX suite's grid-vs-scan ones: two bf16-class programs
+    whose fp32 sums run in different orders, where early Adam turns O(1e-7)
+    gradient noise into a full +-lr step wherever |g| is near zero."""
+    rng = np.random.default_rng(3)
+    jspec, spec = _specs(batch_norm=bn, pallas_relu_mask=True)
+    jp, js = _jax_init(jspec, seed=3)
+    fs_np = jax.tree_util.tree_map(np.asarray, jpt.pack_state(jspec, jp, js))
+    xs, ys, ws, seeds = _epoch_inputs(rng, spec, 2)
+    jfs, jl, ja, fs, losses, accs = _run_both(jspec, spec, fs_np, xs, ys, ws,
+                                              seeds)
+    np.testing.assert_allclose(losses, jl, atol=5e-4)
+    np.testing.assert_allclose(accs, ja, atol=1e-6)
+    got = fstate_to_numpy(fs)
+    for a, b in zip(got["masters"], jfs["masters"]):
+        np.testing.assert_allclose(a, b, atol=2.5e-3)
+    for a, b in zip(got["w16"], jfs["w16"]):
+        np.testing.assert_allclose(a, np.asarray(b, np.float32), atol=2.5e-3)
+    np.testing.assert_allclose(got["small"]["b"], jfs["small"]["b"],
+                               atol=2.5e-3)
+    for k in ("mw", "vw"):
+        for a, b in zip(got[k], jfs[k]):
+            np.testing.assert_allclose(a, b, atol=1e-3)
+    for k in ("m_b", "v_b", "m_gamma", "v_gamma", "m_beta", "v_beta"):
+        np.testing.assert_allclose(got["small"][k], jfs["small"][k],
+                                   atol=1e-3)
+    np.testing.assert_allclose(got["small"]["rmean"], jfs["small"]["rmean"],
+                               atol=1e-4)
+    np.testing.assert_allclose(got["u"], jfs["u"], atol=5e-3)
+    np.testing.assert_array_equal(got["count"], jfs["count"])
+    assert int(got["count"][0]) == 2
+
+
+def test_relu_mask_blocks_dead_units():
+    """The default mask gives a dead unit (a = 0) no gradient; the Pallas
+    kernel's mask (x^ in bf16 against the fp32 threshold) lets some through.
+    One BN layer: dz must vanish wherever the forward ReLU output is 0."""
+    spec = ct.FusedStepSpec(cfg=mlp.MLPConfig(**dict(KW, hidden=(32,))),
+                            batch=64)
+    ops = ct._PlainOps(spec)
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(np.maximum(rng.standard_normal((64, 128)), 0.0)
+                         .astype(np.float32))
+    a[:, 32:] = 0.0
+    w = torch.ones(64)
+    denom = torch.tensor([64.0 + 1e-9])
+    sm = {k: torch.zeros((2, 128)) for k in ct._SMALL_KEYS}
+    sm["gamma"][0] = 1.0
+    muvec, sdvec = torch.zeros(128), torch.zeros(128)
+    xhat = torch.empty((64, 128), dtype=torch.bfloat16)
+    act = torch.empty((64, 128), dtype=torch.bfloat16)
+    seeds = torch.zeros(1, dtype=torch.int32)
+    ops.bn_fwd(0, a, w, denom, sm, muvec, sdvec, xhat, act, seeds, 0)
+    dD = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    dead = (a[:, :32] == 0)
+    leaks = []
+    for pallas in (False, True):
+        spec_k = ct.FusedStepSpec(cfg=spec.cfg, batch=64,
+                                  pallas_relu_mask=pallas)
+        dzb = torch.empty((64, 128), dtype=torch.bfloat16)
+        ct._PlainOps(spec_k).bn_bwd(
+            0, dD, xhat, w, denom, {k: v.clone() for k, v in sm.items()},
+            muvec, sdvec, dzb, seeds, 0, torch.zeros(1, dtype=torch.int32))
+        leaks.append(int((dzb[:, :32].float()[dead] != 0).sum()))
+    assert dead.sum() > 100
+    assert leaks[0] == 0
+    assert leaks[1] > 0  # the reference kernel's leak this default avoids
+
+
+def test_ragged_rows_are_masked():
+    """A batch whose last 16 rows carry weight 0 and poison values gives the
+    same loss and update as the same batch with harmless weight-0 rows."""
+    rng = np.random.default_rng(4)
+    _, spec = _specs(rho=None)
+    xs, ys, ws, seeds = _epoch_inputs(rng, spec, 1, ragged=16)
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(4))
+    fs0 = ct.pack_state(spec, params, state)
+    run = ct.build_fused_epoch_call(spec, 1)
+    clean = xs.copy()
+    clean[0, -16:] = clean[0, :16]
+    outs = [run(fs0, *(torch.from_numpy(a) for a in (x, ys, ws, seeds)))
+            for x in (xs, clean)]
+    assert abs(float(outs[0][1][0, 0]) - float(outs[1][1][0, 0])) < 1e-5
+    for a, b in zip(outs[0][0]["masters"], outs[1][0]["masters"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert torch.isfinite(outs[0][0]["masters"][0]).all()
+
+
+def test_fused_epoch_fn_pads_batches_to_whole_tiles():
+    """A batch of 40 rows runs as 64 rows, 24 of weight 0 (K3 works on
+    64-row tiles): the epoch equals the twin's at 40 rows on the same
+    batches and dropout seeds, dropout on."""
+    rng = np.random.default_rng(9)
+    _, spec = _specs(batch=40, dropout=(0.2, 0.2))
+    x, y = blobs_task(rng, n=80, d=20, k=4)
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(9))
+    fs0 = ct.pack_state(spec, params, state)
+    data = ct.pad_features(spec, torch.from_numpy(x))
+    labels = torch.from_numpy(y.astype(np.int64))
+    ep = ct.build_fused_epoch_fn(spec, shuffle=False)
+    fs, loss, acc = ep(fs0, data, labels, None,
+                       torch.Generator().manual_seed(1), 80)
+    seeds = torch.randint(0, 2 ** 31 - 1, (2,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(1))
+    fs2, l2, a2 = ct.fused_epoch_plain(
+        spec, fs0, data.reshape(2, 40, -1), labels.reshape(2, 40, 1),
+        torch.ones((2, 40, 1)), seeds)
+    assert abs(float(loss) - float(l2.mean())) < 1e-6
+    assert abs(float(acc) - float(a2.mean())) < 1e-6
+    for k in ("masters", "mw", "vw"):
+        for a, b in zip(fs[k], fs2[k]):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    for k in ct._SMALL_KEYS:
+        torch.testing.assert_close(fs["small"][k], fs2["small"][k],
+                                   atol=1e-6, rtol=0)
+    assert int(fs["count"][0]) == 2
+
+
+def test_k3_refuses_the_pallas_relu_mask():
+    """The reference's leaky mask runs only in the twin; K3's operations
+    refuse it before touching the card."""
+    _, spec = _specs(pallas_relu_mask=True)
+    with pytest.raises(ValueError, match="pallas_relu_mask"):
+        ct._CudaOps(spec)
+
+
+def test_dropout_hash_deterministic_and_at_rate():
+    seed = torch.tensor(123456789, dtype=torch.int32)
+    a = ct.dropout_keep(seed, 1, 1000, 1000, 0.9)
+    b = ct.dropout_keep(seed.reshape(1), 1, 1000, 1000, 0.9)
+    assert torch.equal(a, b)
+    assert abs(a.float().mean().item() - 0.9) < 0.01
+    # another layer or seed draws another mask, at the same rate
+    c = ct.dropout_keep(seed, 2, 1000, 1000, 0.9)
+    assert (a != c).float().mean().item() > 0.1
+    d = ct.dropout_keep(torch.tensor(2 ** 31 - 1, dtype=torch.int32), 0,
+                        1000, 1000, 0.5)
+    assert abs(d.float().mean().item() - 0.5) < 0.01
+
+
+def test_dropout_in_the_twin_is_seeded():
+    """With dropout on, the twin is a function of the seeds: equal seeds
+    give equal states, other seeds another one."""
+    rng = np.random.default_rng(5)
+    _, spec = _specs(dropout=(0.3, 0.3))
+    xs, ys, ws, seeds = _epoch_inputs(rng, spec, 2)
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(5))
+    fs0 = ct.pack_state(spec, params, state)
+    run = ct.build_fused_epoch_call(spec, 2)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    r1 = run(fs0, t(xs), t(ys), t(ws), t(seeds))
+    r2 = run(fs0, t(xs), t(ys), t(ws), t(seeds))
+    r3 = run(fs0, t(xs), t(ys), t(ws), t(seeds + 1))
+    assert torch.equal(r1[0]["masters"][0], r2[0]["masters"][0])
+    assert not torch.equal(r1[0]["masters"][0], r3[0]["masters"][0])
+
+
+def test_epoch_parity_vs_plain_ok_on_cpu():
+    rng = np.random.default_rng(6)
+    x, y = blobs_task(rng, n=150, d=20, k=4)
+    cfg = mlp.MLPConfig(**KW)
+    d, n_true = pad_to_multiple(x, 64)
+    lab, _ = pad_to_multiple(y.astype(np.int64), 64)
+    out = ct.epoch_parity_vs_plain(cfg, 64, torch.from_numpy(d),
+                                   torch.from_numpy(lab), n_true)
+    assert out["ok"], out
+    assert out["max_dw"] < out["tol_param"]
+
+
+def test_resolve_epoch_backend():
+    cfg = mlp.MLPConfig(**KW)
+    tcfg = dict(batch_size=64, device_resident=True)
+    # 'auto' stays plain off a CUDA device
+    tr = Trainer(cfg, TrainConfig(epoch_backend="auto", **tcfg),
+                 constraint=make_simple_norm_constraint(0.5).apply)
+    assert tr._resolve_epoch_backend(fresh_opt=True) is False
+    # ... and is 'fused' on a CUDA device, whatever the batch (the fused
+    # epoch pads batches to whole tiles); no tensor is made here
+    for bs in (64, 40):
+        tr = Trainer(cfg, TrainConfig(epoch_backend="auto", batch_size=bs,
+                                      device_resident=True),
+                     constraint=make_simple_norm_constraint(0.5).apply,
+                     device="cuda")
+        assert tr._resolve_epoch_backend(fresh_opt=True) is True
+        assert tr._resolve_epoch_backend(fresh_opt=False) is False
+    # 'fused' refuses a projection it does not implement ...
+    part = make_simple_norm_constraint(0.5, affected_layers_indices=(0,))
+    tr = Trainer(cfg, TrainConfig(epoch_backend="fused", **tcfg),
+                 constraint=part.apply)
+    with pytest.raises(ValueError, match="simple_norm"):
+        tr._resolve_epoch_backend(fresh_opt=True)
+    # ... and a resumed Adam trajectory, which cannot pack into zero moments
+    tr = Trainer(cfg, TrainConfig(epoch_backend="fused", **tcfg),
+                 constraint=make_simple_norm_constraint(0.5).apply)
+    with pytest.raises(ValueError, match="fresh"):
+        tr._resolve_epoch_backend(fresh_opt=False)
+    assert tr._resolve_epoch_backend(fresh_opt=True) is True
+    with pytest.raises(ValueError, match="epoch_backend"):
+        Trainer(cfg, TrainConfig(epoch_backend="xla", **tcfg)
+                )._resolve_epoch_backend(fresh_opt=True)
+
+
+def test_fused_fit_on_cpu_trains():
+    """A device-resident fit with epoch_backend='fused' on the CPU runs the
+    twin end to end (parity check included) and learns the blobs task."""
+    rng = np.random.default_rng(7)
+    x, y = blobs_task(rng, n=128, d=20, k=4)
+    cfg = mlp.MLPConfig(**KW)
+    con = make_simple_norm_constraint(0.5, n_iter=8)
+    params, _ = mlp.init_mlp(cfg, torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, TrainConfig(batch_size=64, epochs=8, patience=8,
+                                  device_resident=True,
+                                  epoch_backend="fused"),
+                 constraint=con.apply, constraint_state=con.init(params))
+    res = tr.fit(x, y, x[:64], y[:64])
+    h = res["history"]
+    assert h["loss"][-1] < h["loss"][0]
+    assert res["opt_state"]["count"].item() == 16
+    assert res["constraint_state"]["u"].shape == (4,)
