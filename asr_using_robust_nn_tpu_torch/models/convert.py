@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["params_from_numpy", "params_to_numpy", "adam_state_from_numpy",
            "adam_state_to_numpy", "cstate_from_numpy", "cstate_to_numpy",
            "fstate_from_numpy", "fstate_to_numpy"]
@@ -45,10 +47,13 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(params: dict, state: dict,
-                      device="cpu") -> tuple[dict, dict]:
+                      device=None) -> tuple[dict, dict]:
     """(params, state) with array leaves (numpy, anything `np.asarray`
-    takes, or tensors) -> float32 tensors on `device`. Leaves are copied, so
-    the result never aliases the caller's (possibly read-only) buffers."""
+    takes, or tensors) -> float32 tensors on `device` (None: the CUDA
+    device). Leaves are copied, so the result never aliases the caller's
+    (possibly read-only) buffers."""
+    device = resolve_device(device)
+
     def leaf(v):
         return _tensor(v, device)
 
@@ -64,10 +69,12 @@ def params_to_numpy(params: dict, state: dict) -> tuple[dict, dict]:
     return _map_layers(params, leaf), _map_layers(state, leaf)
 
 
-def adam_state_from_numpy(count, mu: dict, nu: dict, device="cpu",
+def adam_state_from_numpy(count, mu: dict, nu: dict, device=None,
                           moments_dtype=torch.float32) -> dict:
     """optax ScaleByAdamState fields (count, mu, nu) -> the port's Adam state
-    {"count": int32 0-d tensor, "mu", "nu"} on `device`."""
+    {"count": int32 0-d tensor, "mu", "nu"} on `device` (None: the CUDA
+    device)."""
+    device = resolve_device(device)
     return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                                   device=device),
             "mu": _map_layers(mu, lambda v: _tensor(v, device, moments_dtype)),
@@ -82,9 +89,10 @@ def adam_state_to_numpy(opt_state: dict) -> tuple:
             _map_layers(opt_state["nu"], _numpy))
 
 
-def cstate_from_numpy(cstate: dict, device="cpu") -> dict:
-    """simple_norm constraint state {"u"} -> tensors on `device`."""
-    return {"u": _tensor(cstate["u"], device)}
+def cstate_from_numpy(cstate: dict, device=None) -> dict:
+    """simple_norm constraint state {"u"} -> tensors on `device` (None: the
+    CUDA device)."""
+    return {"u": _tensor(cstate["u"], resolve_device(device))}
 
 
 def cstate_to_numpy(cstate: dict) -> dict:
@@ -95,9 +103,11 @@ _FSTATE_STACKS = {"masters": torch.float32, "w16": torch.bfloat16,
                   "mw": torch.float32, "vw": torch.float32}
 
 
-def fstate_from_numpy(fs: dict, device="cpu") -> dict:
+def fstate_from_numpy(fs: dict, device=None) -> dict:
     """A packed fused-epoch state (`pack_state`'s dict: masters, w16, mw, vw,
-    small, scales, u, count) -> tensors on `device` in the port's dtypes."""
+    small, scales, u, count) -> tensors on `device` (None: the CUDA device)
+    in the port's dtypes."""
+    device = resolve_device(device)
     out = {k: tuple(_tensor(v, device, dt) for v in fs[k])
            for k, dt in _FSTATE_STACKS.items()}
     out["small"] = {k: _tensor(v, device) for k, v in fs["small"].items()}

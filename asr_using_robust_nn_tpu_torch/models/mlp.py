@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["MLPConfig", "init_mlp", "apply_mlp", "predict_probs",
            "dense_kernels", "set_dense_kernels"]
 
@@ -81,10 +83,12 @@ class MLPConfig:
 
 
 def init_mlp(cfg: MLPConfig, generator: torch.Generator,
-             device="cpu") -> tuple[dict, dict]:
+             device=None) -> tuple[dict, dict]:
     """-> (params, state): glorot-uniform kernels, zero biases, BN gamma 1,
     beta 0, moving mean 0 and var 1. Draws come from `generator`, which must
-    live on `device`; they differ from JAX's for the same seed."""
+    live on `device` (None: the CUDA device); they differ from JAX's for the
+    same seed."""
+    device = resolve_device(device)
     dims = (cfg.in_dim,) + tuple(cfg.hidden) + (cfg.n_classes,)
     layers, slayers = [], []
     for i in range(len(dims) - 1):

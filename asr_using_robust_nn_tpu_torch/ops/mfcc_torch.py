@@ -8,9 +8,16 @@ package's `ops/mfcc_xla.py`.
     C  = D @ Dct^T                                # cepstral projection
 
 `mfcc_torch_batch` is the plain pipeline: the rDFT -> power -> mel chain
-in fp32 GEMMs (`mel_power_plain`), then the dB/DCT finish. The chain has a
-hand-written CUDA kernel beside its plain twin in `ops/cuda_mfcc.py`; both
-share `finish_mfcc_from_mel`, which runs in float64 (see its docstring).
+in fp32 GEMMs (`mel_power_plain`), then the dB/DCT finish. The chain has
+hand-written CUDA kernels beside their plain twins in `ops/cuda_mfcc.py`
+(fp32 products, fp64 sums), `ops/cuda_mfcc_int8.py` (int8 digits) and
+`ops/cuda_mfcc_x3.py` (three-pass bf16); all share `finish_mfcc_from_mel`,
+which runs in float64 (see its docstring).
+
+`cfg.dft_algorithm="bf16_x3"` (`FrontendConfig.speaker_fast()`) runs the two
+DFT products of `mel_power_plain` as three bf16 passes (`matmul_bf16x3`);
+the mel and DCT products stay fp32, as in the JAX package, where the
+algorithm applies to the DFT einsums alone.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from .frontend_ref import num_frames as _num_frames
 
 __all__ = [
     "FrontendConfig",
+    "bf16x3_split",
+    "matmul_bf16x3",
     "center_pad",
     "frame_signal",
     "finish_mfcc_from_mel",
@@ -45,9 +54,11 @@ class FrontendConfig:
     `speaker()` the overrides win_length=441, n_fft=441, hop_length=220.
 
     The fields equal the JAX package's `FrontendConfig` one for one, so two
-    configs compare equal field by field. `precision`, `dft_algorithm` and
-    `dft_split_levels` steer only the JAX package's XLA einsums; the port
-    ignores them (its precision is set per path: ops/cuda_mfcc.py).
+    configs compare equal field by field. `precision`, `dft_split_levels`
+    and `dft_algorithm="bf16_x6"` steer only the JAX package's XLA einsums;
+    the port ignores them (its precision is set per path: ops/cuda_mfcc.py).
+    `dft_algorithm="bf16_x3"` is honoured by the plain path
+    (`mel_power_plain`): its DFT products run as three bf16 passes.
     """
 
     sr: int = 22050
@@ -81,6 +92,16 @@ class FrontendConfig:
         return FrontendConfig(
             n_fft=441, hop_length=220, win_length=441, utterance_length=101,
             dft_algorithm="bf16_x6",
+        )
+
+    @staticmethod
+    def speaker_fast() -> "FrontendConfig":
+        """The speaker preset with the three-pass bf16 DFT: looser parity
+        against the f64 oracle (the JAX package states ~2.4e-3 abs on the
+        MFCC; its tests hold the class to atol 8e-3, rtol 1e-3). Opt-in."""
+        return FrontendConfig(
+            n_fft=441, hop_length=220, win_length=441, utterance_length=101,
+            dft_algorithm="bf16_x3",
         )
 
     @property
@@ -175,18 +196,40 @@ def finish_mfcc_from_mel(mel, cfg, lengths, b, n_frames, dct_t):
     return mfcc.transpose(1, 2).float()  # (B, n_mfcc, T) — reference layout
 
 
+def bf16x3_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 -> (hi, lo) bf16 with x ~= hi + lo: hi = bf16(x), lo =
+    bf16(x - hi), both rounded to nearest even as JAX's astype does."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def matmul_bf16x3(a_hi, a_lo, b_hi, b_lo) -> torch.Tensor:
+    """a @ b from split operands as hi@hi + hi@lo + lo@hi, the lo@lo term
+    dropped (~2^-16 relative). A product of two bf16 values is exact in
+    fp32, so fp32 GEMMs on the bf16 values are bf16 GEMMs with fp32 sums."""
+    a_hi, a_lo, b_hi, b_lo = (t.float() for t in (a_hi, a_lo, b_hi, b_lo))
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
 def mel_power_plain(waves: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """(B, L) waves -> (B, T, n_mels) mel power: pad, frame, two fp32 GEMMs
-    for the windowed rDFT, |.|^2, mel GEMM. The plain twin of the CUDA
-    kernel in ops/cuda_mfcc.py."""
+    for the windowed rDFT (three bf16 passes each under
+    `cfg.dft_algorithm="bf16_x3"`), |.|^2, fp32 mel GEMM. The plain twin of
+    the CUDA kernel in ops/cuda_mfcc.py."""
     if waves.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
     n_frames = cfg.num_frames(waves.shape[-1])
     cr, ci, mel_t, _ = device_constants(cfg, waves.device)
     frames = frame_signal(center_pad(waves.float(), cfg), n_frames,
                           cfg.n_fft, cfg.hop_length)
-    re = frames @ cr
-    im = frames @ ci
+    if cfg.dft_algorithm == "bf16_x3":
+        f_hi, f_lo = bf16x3_split(frames)
+        re = matmul_bf16x3(f_hi, f_lo, *bf16x3_split(cr))
+        im = matmul_bf16x3(f_hi, f_lo, *bf16x3_split(ci))
+    else:
+        re = frames @ cr
+        im = frames @ ci
     return (re * re + im * im) @ mel_t
 
 

@@ -28,6 +28,7 @@ from ..frontend.mfcc import Frontend
 from ..models.convert import params_from_numpy
 from ..models.mlp import MLPConfig, apply_mlp
 from ..ops.mfcc_torch import FrontendConfig
+from ..utils.device import resolve_device
 
 __all__ = ["InferenceEngine"]
 
@@ -51,13 +52,14 @@ class InferenceEngine:
       wave_width: fixed waveform sample width per request row. Default 1 s
         at cfg.sr; shorter inputs are masked exactly via per-row `lengths`,
         longer ones truncated.
-      device: where the request path runs. On a CUDA device the frontend's
-        rDFT -> power -> mel chain is the K1 kernel.
+      device: where the request path runs. None is the CUDA device (an
+        error where there is none); pass "cpu" for the CPU. On a CUDA device
+        the frontend's rDFT -> power -> mel chain is the K1 kernel.
     """
 
     def __init__(self, model_cfg: MLPConfig, frontend_cfg: FrontendConfig,
                  params, state, scaler=None, buckets=_DEFAULT_BUCKETS,
-                 wave_width: int | None = None, device="cpu"):
+                 wave_width: int | None = None, device=None):
         if list(buckets) != sorted(set(int(b) for b in buckets)) or \
                 min(buckets) < 1:
             raise ValueError(f"buckets must be ascending unique positive "
@@ -66,7 +68,7 @@ class InferenceEngine:
         self.frontend_cfg = frontend_cfg
         self.buckets = tuple(int(b) for b in buckets)
         self.wave_width = int(wave_width or frontend_cfg.sr)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._fe = Frontend(frontend_cfg, device=self.device)
         self._params, self._state = params_from_numpy(params, state,
                                                       self.device)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.mlp import MLPConfig, apply_mlp, init_mlp, predict_probs
+from ..utils.device import resolve_device
 
 __all__ = ["TrainConfig", "Trainer", "Adam", "adam_optimizer", "apply_update",
            "cce_from_logits"]
@@ -175,7 +176,8 @@ class Trainer:
     """Train/eval steps with early stopping and best-params retention.
     `constraint` is an optional projection `(params, cstate) -> (params,
     cstate)` from constraints/engine.py, applied after the Adam update and
-    the NonNeg clamp. Everything runs on `device`."""
+    the NonNeg clamp. Everything runs on `device` (None: the CUDA device, an
+    error where there is none; "cpu" for the CPU)."""
 
     def __init__(
         self,
@@ -184,14 +186,14 @@ class Trainer:
         constraint: Callable | None = None,
         constraint_state=None,
         epoch_callbacks: tuple[Callable, ...] = (),
-        device="cpu",
+        device=None,
     ):
         self.model_cfg = model_cfg
         self.cfg = train_cfg or TrainConfig()
         self.constraint = constraint
         self.constraint_state = constraint_state
         self.epoch_callbacks = tuple(epoch_callbacks)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.optimizer = adam_optimizer(self.cfg.learning_rate,
                                         self.cfg.adam_moments_dtype)
         self._build_steps()

@@ -4,8 +4,9 @@ A copy of the numpy path of the JAX package's `utils/audio_io.py`, the
 replacement for the reference's `librosa.load(file_path, mono=True)`: decode
 any common WAV encoding, mix down to mono, scale to float32 in [-1, 1] and
 resample to the target rate (librosa's default 22 050 Hz) with a
-kaiser_best-class windowed-sinc FIR. The JAX package's C++ decode fast path
-(`utils/native.py`) is not ported yet; this module is the port's only path.
+kaiser_best-class windowed-sinc FIR. The C++ fast path (`utils/native.py`)
+accelerates batch decode and resampling; this module is the always-available
+numpy path and the one source of the filter design for both.
 """
 
 from __future__ import annotations
@@ -157,11 +158,22 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return y[::down][:n_out].astype(np.float32)
 
 
-def load_audio(path, target_sr: int = 22050) -> tuple[np.ndarray, int]:
+def load_audio(path, target_sr: int = 22050,
+               native: bool | None = None) -> tuple[np.ndarray, int]:
     """librosa.load-equivalent: mono float32 at target_sr.
 
-    Mixdown = mean over channels (librosa `to_mono` semantics).
+    Mixdown = mean over channels (librosa `to_mono` semantics). Set
+    `native=True/False` to force/disable the C++ fast path; None auto-selects.
     """
+    if native is not False:
+        from . import native as _native
+
+        if _native.available():
+            y = _native.decode_resample(path, target_sr)
+            if y is not None:
+                return y, target_sr
+        if native is True:
+            raise RuntimeError("native audio path requested but unavailable")
     ch, sr = read_wav(path)
     mono = ch.mean(axis=0) if ch.shape[0] > 1 else ch[0]
     return resample(mono, sr, target_sr), target_sr

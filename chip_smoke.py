@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and data-preparation paths once
+on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc; imports nothing of JAX. Phases, each of
 which raises on failure (the exit code is then non-zero):
 
-  build    compile csrc/dft_power_mel.cu (K1), product_power_iter.cu (K2) and
-           fused_epoch.cu (K3) from the checkout, one nvcc each, all started
-           together; print the build times and the compiler's
+  build    compile csrc/dft_power_mel.cu (K1), product_power_iter.cu (K2),
+           fused_epoch.cu (K3), int8_dft_power_mel.cu (K4) and
+           dft_power_mel_x3.cu (K5) from the checkout, one nvcc each, all
+           started together; print the build times and the compiler's
            register/shared-memory reports;
   kernel   K1 (`mel_power_cuda`) against its plain fp32 twin and an f64
            chain on the card, both presets, B in {1, 3} (ragged row counts)
@@ -18,7 +19,13 @@ which raises on failure (the exit code is then non-zero):
            (`product_spectral_norm_cuda`) against its twin at the digit
            widths (n_iter 4 and 16, bf16 and fp32 matvecs) and against the
            SVD of the product (a small stack at n_iter 64; an upper bound at
-           the digit widths);
+           the digit widths). K4 (`mel_power_int8_cuda`) and K5
+           (`mel_power_bf16x3_cuda`) against their twins, the twins summed
+           in another order, and the f64 chain, both presets, B in {1, 3,
+           16, 64, 256, 1024}, on rows whose amplitudes spread over 1 ..
+           2^-15 with a silent and a short row; their MFCCs against the f64
+           oracle (rows with `lengths`, PCM rows whose peak is exactly 1.0,
+           0.5 and 2^-15) and the goldens;
   serve    the serving path: a digit_constrained InferenceEngine (full width,
            seeded random weights) warms all four buckets and answers f32 and
            int16 requests of 5..1500 rows, checked against a plain on-card
@@ -41,12 +48,28 @@ which raises on failure (the exit code is then non-zero):
            <= 1.5 rho; the same fit on the plain epoch within 0.15 val
            accuracy; a streaming fit of 1 epoch launching K2 once per step;
            evaluation and FGSM at eps 0.1;
+  prepare  the data-preparation path: seeded synthetic WAV corpora written
+           to a temporary directory (digit: ten word folders of 0.4-1.0 s
+           int16 files at 16 kHz; speaker: 20 folders of 6-10 s recordings
+           at 22 050 Hz), then `cli.main(["prepare-data", ...])` on the card
+           for --task digit --backend cuda_int8 (K4) and --task speaker
+           --backend cuda_bf16x3 (K5), and once more with --backend cuda;
+           artifact shapes, dtypes and order, features of sampled files
+           against the f64 oracle, host- against device-resampled features,
+           K4/K5 launch counts equal to the batch counts; then
+           load_artifacts -> standardize_fit_all -> a short Trainer.fit on
+           the digit artifacts;
   timing   K1 against its plain twin at the 1024-row buckets (CUDA events),
            the engine's warm p50/p95 per bucket and ingress dtype, and
            beside each the request's host-to-device copy and K1 timed alone;
            K2 against its twin at n_iter 4 and 16; K3 per epoch against its
            twin and against the plain epoch (fp32 and bf16), with K3's
-           TFLOP/s.
+           TFLOP/s; K4 and K5 against their twins, K1 and the fp32 chain at
+           1024 rows (K4 also at 256, the featurizer's batch); the
+           torch.fft.rfft -> abs()**2 -> matmul chain and
+           torch.linalg.matrix_norm as library yardsticks; each kernel's
+           bound from the H100's peak rates; the prepare path's host decode
+           and device share timed apart.
 
 The last lines are the kernel summary (JSON), the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -399,6 +422,223 @@ def k2_phase(dev):
     return out
 
 
+# -- kernel phase: K4, K5 -------------------------------------------------------
+
+def spread_waves(b, seed):
+    """Stand-in utterances whose row amplitudes run over 1, 1/2, .. 2^-15,
+    with a silent row and a short (zero-tailed) row where the batch has
+    them."""
+    w = synth_waves(b, seed=seed)
+    w *= (2.0 ** -(np.arange(b) % 16))[:, None].astype(np.float32)
+    if b > 1:
+        w[1] = 0.0
+    if b > 2:
+        w[2, 9000:] = 0.0
+    return w
+
+
+def mfcc_rows():
+    """Rows for the MFCC checks: full, short, very short and zero-length
+    rows (zero past each length), and three int16-PCM rows whose peaks are
+    exactly 1.0, 0.5 and 2^-15."""
+    w = synth_waves(7, seed=21)
+    lens = np.array([22050, 9000, 300, 0, 22050, 15000, 22050], np.int64)
+    for i, top in ((4, 32767), (5, 16384), (6, 1)):
+        w[i] = np.round(w[i] / np.abs(w[i]).max() * top) / 32768.0
+    w[4, 100] = -1.0
+    for i, n in enumerate(lens):
+        w[i, n:] = 0.0
+    return w.astype(np.float32), lens
+
+
+def int8_plain_reordered(waves, cfg):
+    """K4's twin with the mel sum taken in two halves of the bins."""
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_int8 import int8_power
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import device_constants
+
+    power, f = int8_power(waves, cfg)
+    mel_t = device_constants(cfg, waves.device)[2]
+    h = cfg.n_freq // 2
+    inv = 1.0 / f
+    return (power[..., :h] @ mel_t[:h] + power[..., h:] @ mel_t[h:]) \
+        * (inv * inv)[:, None, None]
+
+
+def x3_plain_reordered(waves, cfg):
+    """K5's twin with every product summed in two halves of its depth."""
+    from asr_using_robust_nn_tpu_torch.ops import cuda_mfcc_x3 as x3
+
+    whole = x3.matmul_bf16x3
+
+    def halves(a_hi, a_lo, b_hi, b_lo):
+        h = a_hi.shape[-1] // 2
+        return (whole(a_hi[..., :h], a_lo[..., :h], b_hi[:h], b_lo[:h])
+                + whole(a_hi[..., h:], a_lo[..., h:], b_hi[h:], b_lo[h:]))
+
+    x3.matmul_bf16x3 = halves
+    try:
+        return x3.mel_power_bf16x3_plain(waves, cfg)
+    finally:
+        x3.matmul_bf16x3 = whole
+
+
+# |kernel - twin| <= rel * |twin| + floor * (the row's peak mel value), and
+# the same form against the f64 chain. K4 and its twin hold bit-equal power
+# spectra and differ in the order of ~1000 non-negative fp32 mel terms
+# (the twin summed in two halves reads ~4e-7 relative), so 1e-5. K5 and its
+# twin differ in the order of signed fp32 sums whose error follows the
+# frame's energy, not the bin's, and the tensor cores truncate where the
+# twin's fp32 GEMMs round: on bins 1e-6 of the row's peak the twin summed in
+# two halves reads up to 1.4e-4 relative and the kernel 2.7e-4 (H100), so
+# 5e-4 plus 1e-8 of the row's peak. Against the f64 chain both are held at
+# their scheme's class.
+K45_BARS = {
+    "K4": {"twin": (1e-5, 1e-12), "f64": (1e-3, 1e-9)},
+    "K5": {"twin": (5e-4, 1e-8), "f64": (1e-3, 1e-8)},
+}
+
+
+def within(got, want, rel, floor):
+    """-> (ok, worst excess in units of the row's peak, max relative error
+    where want > 1e-6 of the row's peak)."""
+    import torch
+
+    want = want.to(got.dtype) if want.dtype != got.dtype else want
+    peak = want.abs().amax(dim=(1, 2), keepdim=True)
+    err = (got - want).abs()
+    ok = bool(torch.all(err <= rel * want.abs() + floor * peak))
+    big = want.abs() > 1e-6 * peak
+    max_rel = float((err / want.abs())[big].max()) if bool(big.any()) else 0.0
+    return ok, max_rel, float(err.max())
+
+
+def k45_phase(dev, batches=(1, 3, 16, 64, 256, 1024)):
+    """K4 and K5 against their twins, the reordered twins and the f64
+    chain; their MFCCs against the oracle and the goldens."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops import frontend_ref
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_int8 import (
+        mel_power_int8_cuda, mel_power_int8_plain, mfcc_cuda_int8_batch)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_x3 import (
+        mel_power_bf16x3_cuda, mel_power_bf16x3_plain,
+        mfcc_cuda_bf16x3_batch)
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+
+    kernels = {
+        "K4": (mel_power_int8_cuda, mel_power_int8_plain,
+               int8_plain_reordered, mfcc_cuda_int8_batch),
+        "K5": (mel_power_bf16x3_cuda, mel_power_bf16x3_plain,
+               x3_plain_reordered, mfcc_cuda_bf16x3_batch),
+    }
+    gold = np.load(os.path.join(REPO, "tests", "golden_mfcc.npz"))
+    names = ["chirp", "tone_noise", "impulses"]
+    gw = torch.from_numpy(np.stack([gold[f"in_{n}"] for n in names])).to(dev)
+    rows, lens = mfcc_rows()
+    out = {}
+    for tag, (kernel, plain, reordered, mfcc_fn) in kernels.items():
+        res = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        for preset in ("digit", "speaker"):
+            cfg = getattr(FrontendConfig, preset)()
+            for b in batches:
+                w = torch.from_numpy(spread_waves(b, seed=b)).to(dev)
+                got = kernel(w, cfg)
+                torch.cuda.synchronize()
+                twin = plain(w, cfg)
+                t_ok, t_rel, t_abs = within(got, twin, *K45_BARS[tag]["twin"])
+                r_ok, r_rel, _ = within(reordered(w, cfg), twin,
+                                        *K45_BARS[tag]["twin"])
+                f_ok, f_rel, _ = within(got.double(), mel_f64(w, cfg),
+                                        *K45_BARS[tag]["f64"])
+                print(f"kernel {tag} {preset} B={b}: max_rel (mel > 1e-6 of "
+                      f"the row's peak) vs twin {t_rel:.3e}, twin reordered "
+                      f"vs twin {r_rel:.3e}, vs f64 {f_rel:.3e}; max_abs vs "
+                      f"twin {t_abs:.3e}; bars {K45_BARS[tag]}", flush=True)
+                check(got.shape == (b, cfg.num_frames(22050), 128),
+                      f"{tag} shape {tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()), f"{tag} non-finite")
+                check(t_ok, f"{tag} {preset} B={b} disagrees with its twin")
+                check(r_ok, f"{tag}'s bar fails its twin in another order")
+                check(f_ok, f"{tag} {preset} B={b} disagrees with the f64 chain")
+                if b > 1:
+                    check(not bool(got[1].any()), f"{tag}: a silent row must "
+                          f"give zeros")
+                if preset == ("digit" if tag == "K4" else "speaker"):
+                    res["max_abs_err"] = max(res["max_abs_err"], t_abs)
+                    res["max_rel_err"] = max(res["max_rel_err"], t_rel)
+
+            # the full MFCC against the f64 oracle and the goldens
+            got = mfcc_fn(torch.from_numpy(rows).to(dev), cfg,
+                          torch.from_numpy(lens).to(dev)).cpu().numpy()
+            check(np.isfinite(got).all(), f"{tag} non-finite MFCC")
+            kw = dict(n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                      win_length=cfg.win_length)
+            want = np.zeros_like(got)
+            for i, n in enumerate(lens):
+                if cfg.num_frames(int(n)) == 0:
+                    check(not got[i].any(), "row without frames must be zeros")
+                    continue
+                want[i] = frontend_ref.mfcc_fixed_length_ref(
+                    rows[i, :n], cfg.utterance_length, **kw)
+            got_g = mfcc_fn(gw, cfg).cpu().numpy()
+            want_g = np.stack([gold[f"{preset}_{n}"] for n in names])
+            err = float(np.abs(got - want).max())
+            err_g = float(np.abs(got_g - want_g).max())
+            res[f"mfcc_err_{preset}"] = err
+            res[f"golden_err_{preset}"] = err_g
+            if tag == "K4":
+                # The scheme misses the port's 5e-4 where a frame's energy
+                # sits at the window's edges (a frame over a silent stretch):
+                # the constants' digits are exact to 2^-21 of the largest
+                # constant, not of each windowed value, and the twin reads
+                # 8.5e-4 (digit) and 1.2e-3 (speaker) on these rows on the
+                # CPU, as the JAX package's int8 path does. So the oracle
+                # bar is the JAX suite's own int8 bar, atol 1e-3 rtol 1e-4,
+                # and the line says whether 5e-4 was met. The golden chirp
+                # is beyond the scheme too (twin 1.3e-3 digit, 4.6e-3
+                # speaker on the CPU): the goldens hold the kernel to its
+                # twin, and on the digit preset to the JAX suite's golden
+                # bar, atol 2e-3 rtol 1e-4; the speaker distance is a reading.
+                twin_g = mel_to_mfcc(mel_power_int8_plain(gw, cfg), cfg, dev)
+                kt = float(np.abs(got_g - twin_g).max())
+                check(np.all(np.abs(got - want) <= 1e-3 + 1e-4 * np.abs(want)),
+                      f"K4 MFCC {preset} {err} from the oracle")
+                if preset == "digit":
+                    check(np.all(np.abs(got_g - want_g)
+                                 <= 2e-3 + 1e-4 * np.abs(want_g)),
+                          f"K4 MFCC digit {err_g} from the goldens")
+                check(kt <= 2.5e-4, f"K4 MFCC {preset} {kt} from its twin on "
+                      f"the goldens")
+                note = (f"oracle bar atol 1e-3 rtol 1e-4 (5e-4 "
+                        f"{'met' if err <= 5e-4 else 'missed'}); goldens: "
+                        f"{kt:.3e} from the twin (bar 2.5e-4, two fp32 ulps "
+                        f"of c0 ~ -1100)"
+                        + (", bar atol 2e-3 rtol 1e-4 (5e-4 "
+                           f"{'met' if err_g <= 5e-4 else 'missed'})"
+                           if preset == "digit" else
+                           ", the distance to them is a reading"))
+            else:
+                check(np.all(np.abs(got - want) <= 8e-3 + 1e-3 * np.abs(want)),
+                      f"K5 MFCC {preset} {err} from the oracle")
+                check(np.all(np.abs(got_g - want_g)
+                             <= 8e-3 + 1e-3 * np.abs(want_g)),
+                      f"K5 MFCC {preset} {err_g} from the goldens")
+                note = "bar atol 8e-3 rtol 1e-3"
+            print(f"mfcc {preset}: {tag} max_abs vs f64 oracle {err:.3e}, vs "
+                  f"goldens {err_g:.3e}; {note}", flush=True)
+        out[tag] = res
+    return out
+
+
+def mel_to_mfcc(mel, cfg, dev):
+    """The shared dB/DCT finish on a (B, T, 128) mel power, as numpy."""
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import (
+        device_constants, finish_mfcc_from_mel)
+
+    return finish_mfcc_from_mel(
+        mel, cfg, None, mel.shape[0], mel.shape[1],
+        device_constants(cfg, dev)[3]).cpu().numpy()
+
+
 # Adam moments of K3 against its twin after one epoch, as the largest
 # ||a - b|| / ||b|| over every weight's m and v and the stacked small
 # moments. Unlike the weights, the moments follow the gradients smoothly, so
@@ -552,8 +792,9 @@ def k3_phase(dev, split, batch=512):
 
 # -- training phase -------------------------------------------------------------
 
-def synth_class_waves(labels, seed, device, width=22050):
-    """Seeded 1-s utterances, made on `device`: one 0.3-0.5 s voiced burst
+def synth_class_waves(labels, seed, device, width=22050, sr=22050):
+    """Seeded 1-s utterances (`width` samples at `sr` Hz), made on `device`:
+    one 0.3-0.5 s voiced burst
     (sin^2 onset and offset, anywhere in the second) whose class sets both
     the pitch, a glide around 300 * 1.25**c Hz with a random slope of +-30 %
     over the second, and the timbre, the harmonic (1..5) that carries most
@@ -567,7 +808,7 @@ def synth_class_waves(labels, seed, device, width=22050):
     def uni(lo, hi):
         return lo + (hi - lo) * torch.rand((n, 1), generator=g, device=device)
 
-    t = torch.arange(width, device=device)[None, :] / 22050.0
+    t = torch.arange(width, device=device)[None, :] / float(sr)
     f0 = 300.0 * 1.25 ** lab * uni(0.97, 1.03)
     slope = uni(-0.3, 0.3)
     phase = 2 * np.pi * f0 * (t + 0.5 * slope * (t * t - t)) + uni(0, 6.3)
@@ -706,6 +947,318 @@ def train_phase(dev, split, epochs=40, batch=512, epoch_backend="auto"):
             "loss": h["loss"], "val_acc": acc_k3, "plain_val_acc": acc_pl,
             "test_acc": acc, "fgsm_acc": adv_acc, "product_norm": sigma,
             "fit_s": sec, "plain_fit_s": sec_pl, "streaming_fit_s": sec_s}
+
+
+# -- data-preparation phase ------------------------------------------------------
+
+def write_corpora(dev, root, digit_per_class, speakers, recs_per_speaker):
+    """Seeded synthetic corpora written as int16 WAVs with the port's
+    `write_wav`. Digit: ten `DIGIT_WORDS` folders of 0.4-1.0 s files at
+    16 kHz, the pitch-glide utterances of `synth_class_waves` made on the
+    card and brought to the host. Speaker: `speakers` folders of 6-10 s
+    recordings at 22 050 Hz, each a run of such utterances whose pitch and
+    timbre follow the speaker."""
+    from asr_using_robust_nn_tpu_torch.data.corpus import DIGIT_WORDS
+    from asr_using_robust_nn_tpu_torch.utils.audio_io import write_wav
+
+    rng = np.random.default_rng(SEED + 60)
+    t0 = time.perf_counter()
+
+    def faded(y, sr):
+        """A 5 ms sin^2 fade at both ends: a recording does not stop at
+        full amplitude."""
+        n = int(0.005 * sr)
+        ramp = np.sin(0.5 * np.pi * np.arange(n) / n) ** 2
+        y = y.copy()
+        y[:n] *= ramp
+        y[-n:] *= ramp[::-1]
+        return y
+
+    ddir, sdir = os.path.join(root, "digits"), os.path.join(root, "speakers")
+    for c, word in enumerate(DIGIT_WORDS):
+        os.makedirs(os.path.join(ddir, word))
+        waves = synth_class_waves(np.full(digit_per_class, c), SEED + 61 + c,
+                                  dev, width=16000, sr=16000).cpu().numpy()
+        for k, y in enumerate(waves):
+            n = int(rng.integers(6400, 16001))
+            write_wav(os.path.join(ddir, word, f"u{k:04d}.wav"),
+                      faded(y[:n], 16000), 16000)
+    seconds = 0.0
+    for s in range(speakers):
+        os.makedirs(os.path.join(sdir, f"spk{s:02d}"))
+        # pitch 300 * 1.25**(s/2) Hz keeps 20 speakers under 2.5 kHz
+        waves = synth_class_waves(
+            np.full(recs_per_speaker * 10, s / 2.0), SEED + 80 + s, dev
+        ).cpu().numpy().reshape(recs_per_speaker, -1)
+        for k, y in enumerate(waves):
+            n = int(rng.integers(6 * 22050, 10 * 22050 + 1))
+            seconds += n / 22050.0
+            write_wav(os.path.join(sdir, f"spk{s:02d}", f"r{k:03d}.wav"),
+                      faded(y[:n], 22050), 22050)
+    print(f"prepare corpora: {10 * digit_per_class} digit files (16 kHz, "
+          f"0.4-1.0 s), {speakers * recs_per_speaker} speaker recordings "
+          f"({seconds:.0f} s at 22 050 Hz) written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return ddir, sdir
+
+
+def run_prepare(dev, task, data_dir, out_dir, backend):
+    """`prepare-data` through the CLI's `main`, on the default device when
+    `dev` is the card. -> (the JSON line it printed, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.cli.main import main as cli_main
+
+    argv = ["prepare-data", "--task", task, "--data-dir", data_dir,
+            "--out-dir", out_dir, "--seed", str(SEED), "--backend", backend]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check(rc == 0, f"prepare-data {task} exit code {rc}")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"prepare {task} --backend {backend}: {json.dumps(line)} in "
+          f"{sec:.2f} s", flush=True)
+    return line, sec
+
+
+def oracle_features(cfg, y):
+    from asr_using_robust_nn_tpu_torch.ops import frontend_ref
+
+    return frontend_ref.mfcc_fixed_length_ref(
+        y, cfg.utterance_length, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+        win_length=cfg.win_length).reshape(-1)
+
+
+def prepare_phase(dev, digit_per_class=256, speakers=20, recs_per_speaker=20,
+                  batch=256, fit_epochs=60, fit_batch=128, samples=24):
+    """The data-preparation path at the presets' full width: corpus ->
+    prepare-data (digit on K4, speaker on K5 and once on K1) -> artifacts ->
+    load_artifacts -> standardize_fit_all -> Trainer.fit."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.data.corpus import (
+        DIGIT_WORDS, walk_corpus)
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        featurize_files, load_artifacts, slice_seconds, split_files,
+        standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig, init_mlp
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_int8 import (
+        mel_power_int8_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_x3 import (
+        mel_power_bf16x3_cuda, mel_power_bf16x3_plain)
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        TrainConfig, Trainer)
+    from asr_using_robust_nn_tpu_torch.utils import native
+    from asr_using_robust_nn_tpu_torch.utils.audio_io import load_audio
+
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 62)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        ddir, sdir = write_corpora(dev, root, digit_per_class, speakers,
+                                   recs_per_speaker)
+        print(f"prepare decoder: "
+              f"{'native C++' if native.available() else 'numpy'}",
+              flush=True)
+
+        # ---- digit task on K4 ------------------------------------------------
+        d_cfg = FrontendConfig.digit()
+        files, labels, _ = walk_corpus(ddir, DIGIT_WORDS)
+        want_split = split_files(files, labels, SEED)
+        d_out = os.path.join(root, "digit_npy")
+        mel_power_int8_cuda.launches = 0  # the digit path starts here
+        line, d_sec = run_prepare(dev, "digit", ddir, d_out, "cuda_int8")
+        k4 = mel_power_int8_cuda.launches  # ... and ends here
+        art = load_artifacts(d_out)
+        batches = sum(-(-len(f) // batch) for f, _ in want_split)
+        print(f"prepare digit: {len(files)} files -> {line['train'][0]} / "
+              f"{line['dev'][0]} / {line['test'][0]} rows, {batches} batches "
+              f"of {batch}, K4 launches {k4}, {len(files) / d_sec:.0f} "
+              f"files/s", flush=True)
+        if on_card:
+            check(k4 == batches, f"K4 launched {k4} times for {batches} "
+                  f"batches")
+        for name, (f, lab) in zip(("train", "dev", "test"), want_split):
+            x, y = getattr(art, f"{name}_data"), getattr(art, f"{name}_label")
+            check(x.shape == (len(f), 880) and x.dtype == np.float64,
+                  f"digit {name}_data {x.shape} {x.dtype}")
+            check(y.dtype == np.int32 and np.array_equal(y, lab),
+                  f"digit {name}_label order or dtype")
+            check(line[name] == [len(f), 880], f"digit JSON line {name}")
+            check(np.isfinite(x).all(), f"digit {name}_data non-finite")
+        check(list(art.test_filenames) == want_split[2][0]
+              and np.array_equal(art.test_audio_label, want_split[2][1])
+              and all(os.path.isfile(p) for p in art.test_filenames),
+              "digit test_filenames do not resolve or are out of order")
+        # sampled files against the f64 oracle per file, and against the
+        # plain int8 path on the same files. These utterances are clean (a
+        # harmonic burst 50-60 dB over its noise floor), where the int8
+        # scheme's dropped digit tails, which follow the loudest bins, reach
+        # the quiet ones: the scheme reads up to 5e-3 from the oracle on
+        # such files (the plain int8 path as much as the kernel). So the
+        # oracle bar is twice the atol the JAX suite's data tests hold
+        # featurized rows to (1e-2, rtol 1e-3), the reading is printed, and
+        # the kernel path is held to the plain path at two fp32 ulps of c0.
+        tr_files = want_split[0][0]
+        pick = sorted(rng.choice(len(tr_files), min(samples, len(tr_files)),
+                                 replace=False))
+        err = 0.0
+        for i in pick:
+            want = oracle_features(d_cfg, load_audio(tr_files[i])[0])
+            d = np.abs(art.train_data[i] - want)
+            check(np.all(d <= 1e-2 + 1e-3 * np.abs(want)),
+                  f"digit artifact row {i} off the oracle by {d.max()}")
+            err = max(err, float(d.max()))
+        plain_rows = featurize_files([tr_files[i] for i in pick], d_cfg,
+                                     backend="int8", device=dev)
+        twin_err = float(np.abs(art.train_data[pick] - plain_rows).max())
+        print(f"prepare digit: {len(pick)} files' features vs the f64 oracle "
+              f"per file: max_abs {err:.3e} (bar atol 1e-2 rtol 1e-3; 5e-4 "
+              f"{'met' if err <= 5e-4 else 'missed'}); vs the plain int8 path "
+              f"{twin_err:.3e} (bar 2.5e-4)", flush=True)
+        check(twin_err <= 2.5e-4, f"K4 artifact rows {twin_err} from the "
+              f"plain int8 path")
+        # the same test files with the resampler on the device
+        mel_power_int8_cuda.launches = 0
+        t0 = time.perf_counter()
+        dev_rs = featurize_files(want_split[2][0], d_cfg, backend="cuda_int8",
+                                 device_resample=True, device=dev)
+        rs_sec = time.perf_counter() - t0
+        diff = np.abs(dev_rs - art.test_data)
+        print(f"prepare digit device_resample: {len(dev_rs)} test files in "
+              f"{rs_sec:.2f} s, max_abs vs host-resampled features "
+              f"{diff.max():.3e} (bar atol 5e-3 rtol 1e-3), K4 launches "
+              f"{mel_power_int8_cuda.launches}", flush=True)
+        check(np.all(diff <= 5e-3 + 1e-3 * np.abs(art.test_data)),
+              "device- and host-resampled features disagree")
+        if on_card:
+            check(mel_power_int8_cuda.launches == -(-len(dev_rs) // batch),
+                  "K4 launches on the device_resample path")
+
+        # ---- speaker task on K5, and once on K1 ---------------------------------
+        s_cfg = FrontendConfig.speaker()
+        files, labels, classes = walk_corpus(sdir)
+        want_split = split_files(files, labels, SEED)
+        s_out = os.path.join(root, "speaker_npy")
+        mel_power_bf16x3_cuda.launches = 0  # the speaker path starts here
+        line, s_sec = run_prepare(dev, "speaker", sdir, s_out, "cuda_bf16x3")
+        k5 = mel_power_bf16x3_cuda.launches  # ... and ends here
+        s_art = load_artifacts(s_out)
+        windows, batches = [], 0
+        for f, lab in want_split:
+            n_win = [len(slice_seconds(load_audio(p)[0], s_cfg.sr))
+                     for p in f]
+            windows.append(np.repeat(lab, n_win))
+            batches += -(-int(np.sum(n_win)) // batch)
+        total = sum(len(w) for w in windows)
+        print(f"prepare speaker: {len(files)} recordings of {len(classes)} "
+              f"speakers -> {total} windows ({line['train'][0]} / "
+              f"{line['dev'][0]} / {line['test'][0]}), {batches} batches of "
+              f"{batch}, K5 launches {k5}, {len(files) / s_sec:.0f} files/s, "
+              f"{total / s_sec:.0f} windows/s", flush=True)
+        if on_card:
+            check(k5 == batches, f"K5 launched {k5} times for {batches} "
+                  f"batches")
+        for name, lab in zip(("train", "dev", "test"), windows):
+            x, y = getattr(s_art, f"{name}_data"), getattr(s_art,
+                                                          f"{name}_label")
+            check(x.shape == (len(lab), 2020) and x.dtype == np.float64,
+                  f"speaker {name}_data {x.shape} {x.dtype}")
+            check(y.dtype == np.int32 and np.array_equal(y, lab),
+                  f"speaker {name}_label order or dtype")
+            check(np.isfinite(x).all(), f"speaker {name}_data non-finite")
+        check(list(s_art.test_filenames) == want_split[2][0],
+              "speaker test_filenames out of order")
+        # the first recordings' windows against the f64 oracle and against
+        # K5's twin on the same windows. On clean audio the three-pass
+        # scheme's error, which follows the loudest bins, reaches the quiet
+        # ones and passes the class bar the JAX suite holds on noise (atol
+        # 8e-3, rtol 1e-3): the line says whether that bar was met, the
+        # oracle bar here is a sanity bound of 5e-2, and the kernel path is
+        # held to its twin at half the class atol.
+        wins = np.concatenate([
+            slice_seconds(load_audio(p)[0], s_cfg.sr)
+            for p in want_split[0][0][: max(1, samples // 6)]])
+        row = len(wins)
+        want = np.stack([oracle_features(s_cfg, w) for w in wins])
+        d = np.abs(s_art.train_data[:row] - want)
+        worst = float(d.max())
+        in_class = bool(np.all(d <= 8e-3 + 1e-3 * np.abs(want)))
+        check(worst <= 5e-2, f"speaker windows off the oracle by {worst}")
+        twin = mel_to_mfcc(mel_power_bf16x3_plain(
+            torch.from_numpy(wins).to(dev), s_cfg), s_cfg, dev)
+        k5_twin = float(np.abs(s_art.train_data[:row]
+                               - twin.reshape(row, -1)).max())
+        check(k5_twin <= 4e-3, f"K5 artifact rows {k5_twin} from the twin")
+        k1_out = os.path.join(root, "speaker_k1_npy")
+        _, k1_sec = run_prepare(dev, "speaker", sdir, k1_out, "cuda")
+        k1_art = load_artifacts(k1_out)
+        d = np.abs(s_art.train_data - k1_art.train_data)
+        print(f"prepare speaker: {row} windows' K5 features vs the f64 oracle"
+              f" max_abs {worst:.3e} (sanity bar 5e-2; class bar atol 8e-3 "
+              f"rtol 1e-3 {'met' if in_class else 'missed'}), vs K5's twin "
+              f"{k5_twin:.3e} (bar 4e-3); K5 vs K1 artifacts max_abs "
+              f"{d.max():.3e} (sanity bar 5e-2); K1 run {k1_sec:.2f} s",
+              flush=True)
+        check(d.max() <= 5e-2, "K5 and K1 speaker artifacts disagree")
+        check(np.array_equal(s_art.train_label, k1_art.train_label),
+              "K5 and K1 speaker labels disagree")
+
+        # ---- train from the written digit artifacts ------------------------------
+        tr_x, va_x, te_x = (a.astype(np.float32) for a in standardize_fit_all(
+            art.train_data, art.dev_data, art.test_data)[:3])
+        cfg = MLPConfig.digit_constrained()
+        con = make_simple_norm_constraint(0.1)
+        kw = {} if on_card else {"device": dev}  # the card is the default
+        p0, s0 = init_mlp(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 63), **kw)
+        trainer = Trainer(cfg, TrainConfig(
+            batch_size=fit_batch, epochs=fit_epochs, patience=fit_epochs,
+            seed=SEED, device_resident=True), constraint=con.apply,
+            constraint_state=con.init(p0), **kw)
+        t0 = time.perf_counter()
+        res = trainer.fit(tr_x, art.train_label.astype(np.int64), va_x,
+                          art.dev_label.astype(np.int64), params=p0, state=s0)
+        fit_sec = time.perf_counter() - t0
+        h = res["history"]
+        _, te_acc = trainer.evaluate(
+            *params_from_numpy(res["best_params"], res["best_state"],
+                               device=dev),
+            te_x, art.test_label.astype(np.int64))
+        print(f"prepare -> fit: {res['epochs_run']} epochs of "
+              f"{-(-len(tr_x) // fit_batch)} steps in {fit_sec:.2f} s, loss "
+              f"{h['loss'][0]:.4f} -> {h['loss'][-1]:.4f}, val_acc "
+              f"{h['val_acc'][0]:.4f} -> {h['val_acc'][-1]:.4f}, test acc "
+              f"{te_acc:.4f}", flush=True)
+        check(h["loss"][-1] < h["loss"][0], "prepare -> fit: loss did not fall")
+        check(h["val_acc"][-1] > 0.2, f"prepare -> fit: val accuracy "
+              f"{h['val_acc'][-1]} did not leave chance")
+        out.update(
+            k4_launches=k4, k5_launches=k5, digit_files=len(art.train_label)
+            + len(art.dev_label) + len(art.test_label), digit_s=d_sec,
+            speaker_files=len(files), speaker_windows=total, speaker_s=s_sec,
+            speaker_k1_s=k1_sec, digit_oracle_err=err,
+            speaker_oracle_err=worst, device_resample_err=float(diff.max()),
+            fit_s=fit_sec, fit_val_acc=h["val_acc"][-1], fit_test_acc=te_acc)
+
+        # ---- where the digit path's time goes ------------------------------------
+        all_files = walk_corpus(ddir, DIGIT_WORDS)[0]
+        t0 = time.perf_counter()
+        for i in range(0, len(all_files), batch):
+            native.decode_resample_batch(all_files[i: i + batch], d_cfg.sr)
+        out["digit_decode_s"] = time.perf_counter() - t0
+    return out
 
 
 # -- timing phase -------------------------------------------------------------
@@ -870,6 +1423,197 @@ def train_timing_phase(dev, k3_args, reps=5):
     return out
 
 
+# -- bounds, library yardsticks, K4/K5 timing -----------------------------------
+
+# NVIDIA H100 SXM data sheet, dense rates: the least time for a piece of work
+# is the larger of its bytes over the memory rate and its operations over
+# the peak rate of their type.
+H100_BYTES_PER_S = 3.35e12
+H100_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+
+
+def bound_ms(n_bytes, ops):
+    """-> (bound in ms, "bytes" or "operations") for `n_bytes` moved (each
+    input read once, each output written once) and `ops` = {type: count}."""
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = sum(n / H100_OPS_PER_S[k] for k, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def frontend_work(cfg, batch, kernel, width=22050):
+    """Bytes and operations of one rDFT -> power -> mel call on (batch,
+    width) fp32 waves, at the preset's true n_fft and n_freq."""
+    rows = batch * cfg.num_frames(width)
+    dft, mel = cfg.n_fft * cfg.n_freq, cfg.n_freq * 128
+    io = batch * width * 4 + rows * 128 * 4
+    if kernel == "K1":  # fp32 constants, fp32 products
+        return io + (2 * dft + mel) * 4, {"fp32": rows * (4 * dft + 2 * mel)}
+    if kernel == "K4":  # six int8 digit matrices, twelve int8 products
+        return io + 6 * dft + mel * 4, {"int8": rows * 24 * dft,
+                                        "fp32": rows * 2 * mel}
+    # K5: hi/lo bf16 constants, six + three bf16 products
+    return io + (4 * dft + 2 * mel) * 2, {"bf16": rows * (12 * dft + 6 * mel)}
+
+
+def tree_bytes(obj):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tree_bytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tree_bytes(v) for v in obj)
+    return 0
+
+
+def rfft_chain(waves, cfg):
+    """The library chain for the frontend kernels' function: there is no
+    single call, so frames -> torch.fft.rfft -> abs()**2 -> matmul."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops import filters
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import (
+        center_pad, device_constants, frame_signal)
+
+    window = torch.from_numpy(filters.pad_center(
+        filters.hann_window(cfg.win_length), cfg.n_fft).astype(np.float32)
+    ).to(waves.device)
+    frames = frame_signal(center_pad(waves, cfg), cfg.num_frames(
+        waves.shape[-1]), cfg.n_fft, cfg.hop_length)
+    spec = torch.fft.rfft(frames * window, dim=-1)
+    return (spec.abs() ** 2) @ device_constants(cfg, waves.device)[2]
+
+
+def paired_ms(k, p, reps):
+    """plain, kernel, kernel, plain after one warm call each."""
+    k(), p()
+    t = [time_ms(p, reps), time_ms(k, reps), time_ms(k, reps),
+         time_ms(p, reps)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def frontend_timing_phase(dev, prep, batch=1024, reps=3):
+    """K4 and K5 against their twins, K1 and the fp32 chain at `batch` rows
+    on their presets (K4 also at 256), the rfft chain, every frontend
+    kernel's bound, and the prepare path's decode and device shares."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.frontend.mfcc import Frontend
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (
+        mel_power_cuda, mel_power_plain)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_int8 import (
+        mel_power_int8_cuda, mel_power_int8_plain)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_x3 import (
+        mel_power_bf16x3_cuda, mel_power_bf16x3_plain)
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+
+    card = card_line()
+    out = {}
+    cases = (("K4", "digit", mel_power_int8_cuda, mel_power_int8_plain,
+              (batch, 256)),
+             ("K5", "speaker", mel_power_bf16x3_cuda, mel_power_bf16x3_plain,
+              (batch,)))
+    for tag, preset, kernel, plain, sizes in cases:
+        cfg = getattr(FrontendConfig, preset)()
+        for b in sizes:
+            w = torch.from_numpy(synth_waves(b, seed=7)).to(dev)
+            k_ms, p_ms, t = paired_ms(lambda: kernel(w, cfg),
+                                      lambda: plain(w, cfg), reps)
+            k1_ms, pl_ms, _ = paired_ms(lambda: mel_power_cuda(w, cfg),
+                                        lambda: mel_power_plain(w, cfg), reps)
+            rfft_chain(w, cfg)
+            chain = time_ms(lambda: rfft_chain(w, cfg), reps)
+            n_bytes, ops = frontend_work(cfg, b, tag)
+            b_ms, b_by = bound_ms(n_bytes, ops)
+            k1_bound = bound_ms(*frontend_work(cfg, b, "K1"))
+            kind, n_ops = max(ops.items(), key=lambda kv: kv[1])
+            rate = n_ops / k_ms / 1e9  # T op/s of the tensor-core type
+            check(rate < H100_OPS_PER_S[kind] / 1e12, f"{tag} at {rate} "
+                  f"T{kind} op/s is above the H100's peak: a timing error")
+            out[f"{tag}_{b}"] = {
+                "ms": k_ms, "plain_ms": p_ms, "runs_ms": t, "k1_ms": k1_ms,
+                "fp32_chain_ms": pl_ms, "rfft_chain_ms": chain,
+                "bound_ms": b_ms, "bound_by": b_by, "k1_bound_ms": k1_bound[0],
+                "k1_bound_by": k1_bound[1], "tops": rate}
+            print(f"time {tag} {preset} B={b} "
+                  f"({b * cfg.num_frames(22050)} frames): kernel {k_ms:.3f} "
+                  f"ms ({rate:.1f} T{kind} op/s), twin {p_ms:.3f} ms (runs "
+                  f"p,k,k,p {[round(x, 3) for x in t]}); K1 {k1_ms:.3f} ms, "
+                  f"fp32 chain {pl_ms:.3f} ms, rfft chain {chain:.3f} ms; "
+                  f"bound {b_ms:.3f} ms by {b_by} (K1's {k1_bound[0]:.3f} ms "
+                  f"by {k1_bound[1]}); card {card}", flush=True)
+
+    # the digit prepare path's two shares, each alone: the host decode +
+    # resample of every file (timed in the prepare phase), and the device's
+    # work on one featurizer batch (host-to-device copy, digitize + K4, the
+    # f64 finish, copy back) times the number of batches
+    cfg = FrontendConfig.digit()
+    fe = Frontend(cfg, backend="cuda_int8", device=dev)
+    wf = synth_waves(256, seed=9)
+    lens = np.full(256, 22050, np.int64)
+
+    def one_batch():
+        return fe.flat(torch.from_numpy(wf).to(dev), lens).cpu()
+
+    one_batch()
+    batch_ms = time_ms(one_batch, reps)
+    n_batches = prep["k4_launches"]
+    out["prepare"] = {
+        "digit_files_per_s": prep["digit_files"] / prep["digit_s"],
+        "speaker_files_per_s": prep["speaker_files"] / prep["speaker_s"],
+        "speaker_windows_per_s": prep["speaker_windows"] / prep["speaker_s"],
+        "digit_decode_s": prep["digit_decode_s"],
+        "digit_device_s": batch_ms * n_batches / 1e3,
+        "digit_batch_ms": batch_ms}
+    print(f"time prepare digit: {prep['digit_files']} files in "
+          f"{prep['digit_s']:.2f} s ({out['prepare']['digit_files_per_s']:.0f}"
+          f" files/s); alone: host decode + resample "
+          f"{prep['digit_decode_s']:.2f} s, device {n_batches} batches x "
+          f"{batch_ms:.2f} ms = {batch_ms * n_batches / 1e3:.3f} s (copy in, "
+          f"digitize + K4, finish, copy out); speaker "
+          f"{out['prepare']['speaker_files_per_s']:.0f} files/s, "
+          f"{out['prepare']['speaker_windows_per_s']:.0f} windows/s; card "
+          f"{card}", flush=True)
+    return out
+
+
+def library_phase(dev, k3_args, reps=5):
+    """The bounds of K2 and K3 from this run's tensors, and the one library
+    call for K2's function: torch.linalg.matrix_norm(P, ord=2) on the
+    product, with the chain that forms P beside it. K3 has none."""
+    import torch
+
+    ws, u0 = digit_kernels(dev, SEED + 20)
+    links = sum(w.shape[0] * w.shape[1] for w in ws)
+    n_iter = 16
+    k2_bound = bound_ms(tree_bytes(ws) + 2 * tree_bytes(u0),
+                        {"bf16": 2 * (n_iter + 1) * 2 * links})
+
+    def product():
+        return torch.linalg.multi_dot([w.T for w in reversed(ws)])
+
+    p = product()
+    torch.linalg.matrix_norm(p, ord=2)
+    norm_ms = time_ms(lambda: torch.linalg.matrix_norm(p, ord=2), reps)
+    chain_ms = time_ms(
+        lambda: torch.linalg.matrix_norm(product(), ord=2), reps)
+    spec, _, args, *_ = k3_args
+    steps = args[1].shape[0]
+    state_bytes = tree_bytes(args[0])
+    k3_bound = bound_ms(2 * state_bytes + tree_bytes(args[1:]),
+                        {"bf16": step_flop(spec.batch) * steps})
+    print(f"bound K2 digit n_iter {n_iter}: {k2_bound[0]:.5f} ms by "
+          f"{k2_bound[1]}; library torch.linalg.matrix_norm(P, 2) "
+          f"{norm_ms:.3f} ms, with multi_dot forming P {chain_ms:.3f} ms. "
+          f"bound K3 digit epoch: {k3_bound[0]:.4f} ms by {k3_bound[1]} "
+          f"(state {state_bytes / 1e6:.1f} MB in and out, batches "
+          f"{tree_bytes(args[1:]) / 1e6:.1f} MB); no library call",
+          flush=True)
+    return {"k2": {"bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+                   "library_ms": norm_ms, "chain_ms": chain_ms},
+            "k3": {"bound_ms": k3_bound[0], "bound_by": k3_bound[1]}}
+
+
 def build_all():
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -877,7 +1621,8 @@ def build_all():
     from asr_using_robust_nn_tpu_torch.ops._build import (
         build_log, load_library)
 
-    names = ("dft_power_mel", "product_power_iter", "fused_epoch")
+    names = ("dft_power_mel", "product_power_iter", "fused_epoch",
+             "int8_dft_power_mel", "dft_power_mel_x3")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(load_library, names))
@@ -895,7 +1640,8 @@ def main() -> int:
               "False); nothing runs on the CPU", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from asr_using_robust_nn_tpu_torch.ops import cuda_spectral, cuda_train
+    from asr_using_robust_nn_tpu_torch.ops import (
+        cuda_mfcc_int8, cuda_mfcc_x3, cuda_spectral, cuda_train)
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import KERNEL_SOURCE
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
@@ -909,12 +1655,18 @@ def main() -> int:
 
     kern = kernel_phase(dev)
     k2 = k2_phase(dev)
+    k45 = k45_phase(dev)
     serve = serving_phase(dev)
     split = featurize_phase(dev)
     k3 = k3_phase(dev, split)
     train = train_phase(dev, split)
+    prep = prepare_phase(dev)
     timing = timing_phase(dev, serve.pop("engine"))
-    ttime = train_timing_phase(dev, k3.pop("timing_args"))
+    k3_args = k3.pop("timing_args")
+    ttime = train_timing_phase(dev, k3_args)
+    ftime = frontend_timing_phase(dev, prep)
+    lib = library_phase(dev, k3_args)
+    k4t, k5t = ftime["K4_1024"], ftime["K5_1024"]
     kernels = [{
         "name": "dft_power_mel", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": serve["launches"],
@@ -924,9 +1676,13 @@ def main() -> int:
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain: "
                      "1e-5 rel; MFCC vs oracle/goldens: 5e-4 abs",
         "ms": timing["digit"]["ms"], "plain_ms": timing["digit"]["plain_ms"],
+        "bound_ms": k4t["k1_bound_ms"], "bound_by": k4t["k1_bound_by"],
+        "library_ms": None, "library_chain_ms": k4t["rfft_chain_ms"],
+        "library_chain": "frames -> torch.fft.rfft -> abs()**2 -> matmul",
         "shape": "digit bucket 1024 (45056 frames x 2048)",
         "speaker_ms": timing["speaker"]["ms"],
         "speaker_plain_ms": timing["speaker"]["plain_ms"],
+        "speaker_bound_ms": k5t["k1_bound_ms"],
     }, {
         "name": "product_power_iter", "route": "cuda",
         "source": cuda_spectral.KERNEL_SOURCE,
@@ -938,6 +1694,10 @@ def main() -> int:
                      "(fp32); vs SVD: rtol 2e-2 bf16 / 1e-4 fp32 (small "
                      "stack), sigma <= 1.02 SVD (digit)",
         "ms": ttime["k2_n16"]["ms"], "plain_ms": ttime["k2_n16"]["plain_ms"],
+        "bound_ms": lib["k2"]["bound_ms"], "bound_by": lib["k2"]["bound_by"],
+        "library_ms": lib["k2"]["library_ms"],
+        "library": "torch.linalg.matrix_norm(P, ord=2) on the product P",
+        "library_chain_ms": lib["k2"]["chain_ms"],
         "shape": "digit 880x1024..64x10, bf16, n_iter 16",
         "n_iter4_ms": ttime["k2_n4"]["ms"],
         "n_iter4_plain_ms": ttime["k2_n4"]["plain_ms"],
@@ -950,10 +1710,53 @@ def main() -> int:
                      "layer-0 BN mean < 6e-3, epoch loss/acc < 3e-2, Adam "
                      f"moments rel < {MOMENT_BAR}",
         "ms": ttime["k3"]["ms"], "plain_ms": ttime["k3"]["plain_ms"],
+        "bound_ms": lib["k3"]["bound_ms"], "bound_by": lib["k3"]["bound_by"],
+        "library_ms": None,
         "shape": "digit epoch: 33 steps x 512 rows, 896..128 padded",
         "tflops": ttime["k3"]["tflops"],
         "epoch_program_fp32_ms": ttime["epoch_program_fp32"]["ms"],
         "epoch_program_bf16_ms": ttime["epoch_program_bf16"]["ms"],
+    }, {
+        "name": "int8_dft_power_mel", "route": "cuda",
+        "source": cuda_mfcc_int8.KERNEL_SOURCE,
+        "replaces": cuda_mfcc_int8.REPLACES,
+        "launches": prep["k4_launches"],
+        "max_abs_err": k45["K4"]["max_abs_err"],
+        "max_rel_err": k45["K4"]["max_rel_err"],
+        "mfcc_err_digit": k45["K4"]["mfcc_err_digit"],
+        "golden_err_digit": k45["K4"]["golden_err_digit"],
+        "tolerance": f"mel vs twin and vs f64 chain (rel, floor of the "
+                     f"row's peak): {K45_BARS['K4']}; MFCC vs oracle atol "
+                     f"1e-3 rtol 1e-4; goldens: atol 2e-3 rtol 1e-4 (digit), "
+                     f"2.5e-4 from the twin",
+        "ms": k4t["ms"], "plain_ms": k4t["plain_ms"],
+        "bound_ms": k4t["bound_ms"], "bound_by": k4t["bound_by"],
+        "library_ms": None, "library_chain_ms": k4t["rfft_chain_ms"],
+        "k1_ms": k4t["k1_ms"], "fp32_chain_ms": k4t["fp32_chain_ms"],
+        "shape": "digit bucket 1024 (45056 frames x 2048 x 1025)",
+        "tops_int8": k4t["tops"],
+        "b256_ms": ftime["K4_256"]["ms"],
+        "b256_plain_ms": ftime["K4_256"]["plain_ms"],
+        "b256_k1_ms": ftime["K4_256"]["k1_ms"],
+        "b256_bound_ms": ftime["K4_256"]["bound_ms"],
+    }, {
+        "name": "dft_power_mel_x3", "route": "cuda",
+        "source": cuda_mfcc_x3.KERNEL_SOURCE,
+        "replaces": cuda_mfcc_x3.REPLACES,
+        "launches": prep["k5_launches"],
+        "max_abs_err": k45["K5"]["max_abs_err"],
+        "max_rel_err": k45["K5"]["max_rel_err"],
+        "mfcc_err_speaker": k45["K5"]["mfcc_err_speaker"],
+        "golden_err_speaker": k45["K5"]["golden_err_speaker"],
+        "tolerance": f"mel vs twin and vs f64 chain (rel, floor of the "
+                     f"row's peak): {K45_BARS['K5']}; MFCC vs oracle and "
+                     f"goldens atol 8e-3 rtol 1e-3",
+        "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
+        "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"],
+        "library_ms": None, "library_chain_ms": k5t["rfft_chain_ms"],
+        "k1_ms": k5t["k1_ms"], "fp32_chain_ms": k5t["fp32_chain_ms"],
+        "shape": "speaker bucket 1024 (103424 frames x 441 x 221)",
+        "tflops_bf16": k5t["tops"],
     }]
     print(json.dumps({"engine_latency_ms": {
         k: {m: v[m] for m in ("p50_ms", "p95_ms")}
@@ -962,6 +1765,7 @@ def main() -> int:
         "mfcc_err": {k: v for k, v in kern.items() if k.startswith("mfcc")},
         "max_probs_err": serve["max_probs_err"],
         "train": train,
+        "prepare": {**prep, **ftime["prepare"]},
         "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)

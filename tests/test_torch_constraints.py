@@ -116,9 +116,9 @@ def test_simple_norm_apply_matches_jax(affected, n_iter):
     jp2, jcs2 = jc.apply(jax.tree_util.tree_map(jnp.asarray, jp), jcs)
     c = make_simple_norm_constraint(0.5, affected_layers_indices=affected,
                                     n_iter=n_iter, pi_backend="plain")
-    params, _ = params_from_numpy(jp, js)
+    params, _ = params_from_numpy(jp, js, device="cpu")
     p2, cs2 = c.apply(params, cstate_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jcs)))
+        jax.tree_util.tree_map(np.asarray, jcs), device="cpu"))
     got, _ = params_to_numpy(p2, {"layers": []})
     for a, b in zip(got["layers"], jp2["layers"]):
         np.testing.assert_allclose(a["w"], np.asarray(b["w"]), atol=2e-4,
@@ -131,7 +131,7 @@ def test_simple_norm_apply_matches_jax(affected, n_iter):
 
 def test_backends_agree_on_cpu_and_bad_backend_raises():
     jp, js = _small_params(seed=1)
-    params, _ = params_from_numpy(jp, js)
+    params, _ = params_from_numpy(jp, js, device="cpu")
     outs = []
     for backend in ("auto", "plain", "cuda"):
         c = make_simple_norm_constraint(0.5, n_iter=8, pi_backend=backend)

@@ -252,7 +252,7 @@ class TestMFCC:
         (chip_smoke.py)."""
         cfg, _ = _configs(preset)
         waves = np.stack([GOLD[f"in_{n}"] for n in GOLD_NAMES])
-        got = Frontend(cfg)(waves).numpy()
+        got = Frontend(cfg, device="cpu")(waves).numpy()
         want = np.stack([GOLD[f"{preset}_{n}"] for n in GOLD_NAMES])
         np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-4)
 
@@ -275,7 +275,7 @@ class TestFrontend:
         cfg, _ = _configs(preset)
         pcm = np.random.default_rng(7).integers(
             -32768, 32768, (3, 22050)).astype(np.int16)
-        fe = Frontend(cfg)
+        fe = Frontend(cfg, device="cpu")
         f16 = fe(pcm)
         f32 = fe(pcm.astype(np.float32) / 32768.0)
         assert torch.equal(f16, f32)
@@ -285,11 +285,11 @@ class TestFrontend:
         cfg = FrontendConfig.digit()
         w = _waves(2, seed=8)
         lens = [22050, 5000]
-        a = Frontend(cfg, backend="cuda")(w, lengths=lens)
-        b = Frontend(cfg, backend="plain")(w, lengths=lens)
+        a = Frontend(cfg, backend="cuda", device="cpu")(w, lengths=lens)
+        b = Frontend(cfg, backend="plain", device="cpu")(w, lengths=lens)
         assert torch.equal(a, b)
         with pytest.raises(ValueError, match="backend"):
-            Frontend(cfg, backend="xla")
+            Frontend(cfg, backend="xla", device="cpu")
 
     def test_launch_counter_stays_zero_on_cpu(self):
         """On a CPU tensor the wrapper runs the plain twin and launches
@@ -299,5 +299,5 @@ class TestFrontend:
         w = _waves(2, seed=9)
         mel_power_cuda(torch.from_numpy(w), cfg)
         mfcc_cuda_batch(torch.from_numpy(w), cfg)
-        Frontend(cfg)(w)
+        Frontend(cfg, device="cpu")(w)
         assert mel_power_cuda.launches == before == 0

@@ -71,7 +71,7 @@ def _run_both(jspec, spec, fs_np, xs, ys, ws, seeds):
                        jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(ws),
                        jnp.asarray(seeds))
     run = ct.build_fused_epoch_call(spec, xs.shape[0])
-    fs, losses, accs = run(fstate_from_numpy(fs_np),
+    fs, losses, accs = run(fstate_from_numpy(fs_np, device="cpu"),
                            *(torch.from_numpy(a) for a in (xs, ys, ws, seeds)))
     return (jax.tree_util.tree_map(np.asarray, jfs), np.asarray(jl),
             np.asarray(ja), fs, losses.numpy(), accs.numpy())
@@ -86,7 +86,7 @@ def test_pack_unpack_round_trip_matches_jax():
         p["beta"] = rng.standard_normal(p["b"].shape).astype(np.float32)
         s["mean"] = rng.random(p["b"].shape).astype(np.float32)
     jfs = jax.tree_util.tree_map(np.asarray, jpt.pack_state(jspec, jp, js))
-    params, state = params_from_numpy(jp, js)
+    params, state = params_from_numpy(jp, js, device="cpu")
     fs = ct.pack_state(spec, params, state)
     got = fstate_to_numpy(fs)
     for k in ("masters", "w16", "mw", "vw"):
@@ -100,7 +100,7 @@ def test_pack_unpack_round_trip_matches_jax():
     # unpack from a JAX-packed state carried across, scales folded
     jfs["scales"] = np.asarray(jfs["scales"]).copy()
     jfs["scales"][0, :3] = (0.5, 2.0, 0.25)
-    fs = fstate_from_numpy(jfs)
+    fs = fstate_from_numpy(jfs, device="cpu")
     pp, ss = ct.unpack_params(spec, fs)
     jpp, jss = jpt.unpack_params(jspec, jax.tree_util.tree_map(jnp.asarray,
                                                                jfs))
@@ -127,7 +127,7 @@ def test_unpack_opt_state_matches_jax():
     jfs_j = jax.tree_util.tree_map(jnp.asarray, jfs)
     jpp, _ = jpt.unpack_params(jspec, jfs_j)
     jo = jpt.unpack_opt_state(jspec, jfs_j, jadam(1e-3), jpp)[0]
-    fs = fstate_from_numpy(jfs)
+    fs = fstate_from_numpy(jfs, device="cpu")
     pp, _ = ct.unpack_params(spec, fs)
     count, mu, nu = adam_state_to_numpy(
         ct.unpack_opt_state(spec, fs, adam_optimizer(1e-3), pp))
@@ -215,7 +215,8 @@ def test_ragged_rows_are_masked():
     rng = np.random.default_rng(4)
     _, spec = _specs(rho=None)
     xs, ys, ws, seeds = _epoch_inputs(rng, spec, 1, ragged=16)
-    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(4))
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(4),
+            device="cpu")
     fs0 = ct.pack_state(spec, params, state)
     run = ct.build_fused_epoch_call(spec, 1)
     clean = xs.copy()
@@ -235,7 +236,8 @@ def test_fused_epoch_fn_pads_batches_to_whole_tiles():
     rng = np.random.default_rng(9)
     _, spec = _specs(batch=40, dropout=(0.2, 0.2))
     x, y = blobs_task(rng, n=80, d=20, k=4)
-    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(9))
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(9),
+            device="cpu")
     fs0 = ct.pack_state(spec, params, state)
     data = ct.pad_features(spec, torch.from_numpy(x))
     labels = torch.from_numpy(y.astype(np.int64))
@@ -286,7 +288,8 @@ def test_dropout_in_the_twin_is_seeded():
     rng = np.random.default_rng(5)
     _, spec = _specs(dropout=(0.3, 0.3))
     xs, ys, ws, seeds = _epoch_inputs(rng, spec, 2)
-    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(5))
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(5),
+            device="cpu")
     fs0 = ct.pack_state(spec, params, state)
     run = ct.build_fused_epoch_call(spec, 2)
     t = lambda a: torch.from_numpy(a)  # noqa: E731
@@ -314,7 +317,8 @@ def test_resolve_epoch_backend():
     tcfg = dict(batch_size=64, device_resident=True)
     # 'auto' stays plain off a CUDA device
     tr = Trainer(cfg, TrainConfig(epoch_backend="auto", **tcfg),
-                 constraint=make_simple_norm_constraint(0.5).apply)
+                 constraint=make_simple_norm_constraint(0.5).apply,
+                         device="cpu")
     assert tr._resolve_epoch_backend(fresh_opt=True) is False
     # ... and is 'fused' on a CUDA device, whatever the batch (the fused
     # epoch pads batches to whole tiles); no tensor is made here
@@ -328,18 +332,19 @@ def test_resolve_epoch_backend():
     # 'fused' refuses a projection it does not implement ...
     part = make_simple_norm_constraint(0.5, affected_layers_indices=(0,))
     tr = Trainer(cfg, TrainConfig(epoch_backend="fused", **tcfg),
-                 constraint=part.apply)
+                 constraint=part.apply, device="cpu")
     with pytest.raises(ValueError, match="simple_norm"):
         tr._resolve_epoch_backend(fresh_opt=True)
     # ... and a resumed Adam trajectory, which cannot pack into zero moments
     tr = Trainer(cfg, TrainConfig(epoch_backend="fused", **tcfg),
-                 constraint=make_simple_norm_constraint(0.5).apply)
+                 constraint=make_simple_norm_constraint(0.5).apply,
+                         device="cpu")
     with pytest.raises(ValueError, match="fresh"):
         tr._resolve_epoch_backend(fresh_opt=False)
     assert tr._resolve_epoch_backend(fresh_opt=True) is True
     with pytest.raises(ValueError, match="epoch_backend"):
-        Trainer(cfg, TrainConfig(epoch_backend="xla", **tcfg)
-                )._resolve_epoch_backend(fresh_opt=True)
+        Trainer(cfg, TrainConfig(epoch_backend="xla", **tcfg),
+                device="cpu")._resolve_epoch_backend(fresh_opt=True)
 
 
 def test_fused_fit_on_cpu_trains():
@@ -349,11 +354,13 @@ def test_fused_fit_on_cpu_trains():
     x, y = blobs_task(rng, n=128, d=20, k=4)
     cfg = mlp.MLPConfig(**KW)
     con = make_simple_norm_constraint(0.5, n_iter=8)
-    params, _ = mlp.init_mlp(cfg, torch.Generator().manual_seed(0))
+    params, _ = mlp.init_mlp(cfg, torch.Generator().manual_seed(0),
+            device="cpu")
     tr = Trainer(cfg, TrainConfig(batch_size=64, epochs=8, patience=8,
                                   device_resident=True,
                                   epoch_backend="fused"),
-                 constraint=con.apply, constraint_state=con.init(params))
+                 constraint=con.apply, constraint_state=con.init(params),
+                         device="cpu")
     res = tr.fit(x, y, x[:64], y[:64])
     h = res["history"]
     assert h["loss"][-1] < h["loss"][0]

@@ -1,8 +1,10 @@
-"""K1's wrapper (asr_using_robust_nn_tpu_torch/ops/cuda_mfcc.py) on the card:
-what it refuses, and the empty batch it answers without a launch.
+"""The frontend kernels' wrappers on the card (K1 ops/cuda_mfcc.py, K4
+ops/cuda_mfcc_int8.py, K5 ops/cuda_mfcc_x3.py of
+asr_using_robust_nn_tpu_torch): what they refuse, and the empty batch they
+answer without a launch.
 
-K1's numerics on the card (against its plain twin, an f64 chain, the f64
-oracle and the golden vectors, at every serving bucket) are checked by
+The kernels' numerics on the card (against their plain twins, an f64 chain,
+the f64 oracle and the golden vectors, at every batch size) are checked by
 `python3 chip_smoke.py`, the one copy of that check.
 
 Needs an NVIDIA Hopper GPU and nvcc; every test skips without a CUDA device.
@@ -11,10 +13,18 @@ On such a machine (no JAX needed, hence no suite conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
+from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_int8 import (
+    mel_power_int8_cuda,
+)
+from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_x3 import (
+    mel_power_bf16x3_cuda,
+)
 from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
 
 pytestmark = pytest.mark.cuda
@@ -38,3 +48,27 @@ def test_k1_rejects_what_it_does_not_take(dev):
     empty = mel_power_cuda(w[:0], cfg)
     assert empty.shape == (0, cfg.num_frames(22050), 128)
     assert mel_power_cuda.launches == before
+
+
+@pytest.mark.parametrize("wrapper", [mel_power_int8_cuda,
+                                     mel_power_bf16x3_cuda],
+                         ids=["K4", "K5"])
+def test_k4_k5_reject_what_they_do_not_take(dev, wrapper):
+    cfg = FrontendConfig.speaker()
+    w = torch.zeros((2, 22050), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        wrapper(w.double(), cfg)
+    with pytest.raises(ValueError, match="float32"):
+        wrapper(w[0], cfg)  # rank 1
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(torch.zeros((22050, 2), device=dev).t(), cfg)
+    with pytest.raises(ValueError, match="mel"):
+        wrapper(w, dataclasses.replace(cfg, n_mels=64))
+    before = wrapper.launches
+    empty = wrapper(w[:0], cfg)
+    assert empty.shape == (0, cfg.num_frames(22050), 128)
+    assert wrapper.launches == before
+    out = wrapper(w, cfg)  # a silent batch launches and gives zeros
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == (2, cfg.num_frames(22050), 128) and not out.any()

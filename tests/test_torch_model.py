@@ -60,7 +60,7 @@ def test_config_equal_jax(preset):
 def test_eval_forward_matches_jax(preset):
     jcfg, jp, js = _jax_tree(preset)
     cfg = getattr(mlp.MLPConfig, preset)()
-    params, state = params_from_numpy(jp, js)
+    params, state = params_from_numpy(jp, js, device="cpu")
     x = _x(cfg)
     want, _ = jmlp.apply_mlp(jcfg, jp, js, x, train=False)
     got, new_state = mlp.apply_mlp(cfg, params, state, torch.from_numpy(x))
@@ -82,7 +82,7 @@ def test_train_forward_matches_jax(preset, row_weights):
     statistics), and the momentum update of the moving statistics."""
     jcfg, jp, js = _jax_tree(preset, seed=2)
     cfg = getattr(mlp.MLPConfig, preset)()
-    params, state = params_from_numpy(jp, js)
+    params, state = params_from_numpy(jp, js, device="cpu")
     x = _x(cfg, n=32, seed=3)
     w = None
     if row_weights:
@@ -103,7 +103,8 @@ def test_train_forward_matches_jax(preset, row_weights):
 
 def test_zero_weight_rows_do_not_move_batch_stats():
     cfg = mlp.MLPConfig.digit_constrained()
-    params, state = mlp.init_mlp(cfg, torch.Generator().manual_seed(0))
+    params, state = mlp.init_mlp(cfg, torch.Generator().manual_seed(0),
+            device="cpu")
     x = torch.from_numpy(_x(cfg, n=8, seed=4))
     w = torch.tensor([1.0] * 6 + [0.0] * 2)
     noise = x.clone()
@@ -122,7 +123,7 @@ def test_bf16_compute_matches_jax():
     jcfg, jp, js = _jax_tree("digit_unconstrained", seed=5)
     jcfg = jcfg.with_bf16()
     cfg = mlp.MLPConfig.digit_unconstrained().with_bf16()
-    params, state = params_from_numpy(jp, js)
+    params, state = params_from_numpy(jp, js, device="cpu")
     x = _x(cfg, seed=6)
     want, _ = jmlp.apply_mlp(jcfg, jp, js, x)
     got, _ = mlp.apply_mlp(cfg, params, state, torch.from_numpy(x))
@@ -137,7 +138,8 @@ def test_dropout_from_generator():
     cfg = dataclasses.replace(mlp.MLPConfig.digit_unconstrained(),
                               batch_norm=False, hidden=(4096,),
                               dropout=(0.4,))
-    params, state = mlp.init_mlp(cfg, torch.Generator().manual_seed(1))
+    params, state = mlp.init_mlp(cfg, torch.Generator().manual_seed(1),
+            device="cpu")
     params["layers"][1]["w"] = torch.eye(4096)[:, :10]  # expose block 1
     x = torch.from_numpy(_x(cfg, n=64, seed=7))
     a, _ = mlp.apply_mlp(cfg, params, state, x, train=True,
@@ -155,7 +157,8 @@ def test_dropout_from_generator():
 
 def test_init_mlp_glorot_and_layout():
     cfg = mlp.MLPConfig.speaker_constrained()
-    params, state = mlp.init_mlp(cfg, torch.Generator().manual_seed(0))
+    params, state = mlp.init_mlp(cfg, torch.Generator().manual_seed(0),
+            device="cpu")
     jp, js = jmlp.init_mlp(getattr(jmlp.MLPConfig, "speaker_constrained")(),
                            jax.random.PRNGKey(0))
     assert jax.tree_util.tree_structure(
@@ -167,7 +170,8 @@ def test_init_mlp_glorot_and_layout():
         limit = np.sqrt(6.0 / sum(p["w"].shape))
         assert p["w"].abs().max() <= limit and p["w"].std() > limit / 3
         assert not p["b"].any()
-    again, _ = mlp.init_mlp(cfg, torch.Generator().manual_seed(0))
+    again, _ = mlp.init_mlp(cfg, torch.Generator().manual_seed(0),
+            device="cpu")
     assert torch.equal(again["layers"][0]["w"], params["layers"][0]["w"])
 
 
@@ -175,7 +179,7 @@ def test_init_mlp_glorot_and_layout():
                                     "speaker_unconstrained"])
 def test_params_round_trip(preset):
     _, jp, js = _jax_tree(preset, seed=8)
-    params, state = params_from_numpy(jp, js)
+    params, state = params_from_numpy(jp, js, device="cpu")
     back_p, back_s = params_to_numpy(params, state)
     for a, b in zip(jax.tree_util.tree_leaves((back_p, back_s)),
                     jax.tree_util.tree_leaves((jp, js))):

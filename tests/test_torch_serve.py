@@ -68,7 +68,7 @@ def _engines(task, buckets, seed=0):
                             scaler=scaler, backend="xla", buckets=buckets)
     eng = InferenceEngine(getattr(MLPConfig, preset)(),
                           getattr(FrontendConfig, task)(), params, state,
-                          scaler=scaler, buckets=buckets)
+                          scaler=scaler, buckets=buckets, device="cpu")
     return eng, jeng
 
 
@@ -156,7 +156,7 @@ class TestDigitEngine:
         with pytest.raises(ValueError, match="buckets"):
             InferenceEngine(MLPConfig.digit_constrained(),
                             FrontendConfig.digit(), params, state,
-                            buckets=(16, 4))
+                            buckets=(16, 4), device="cpu")
         with pytest.raises(ValueError, match="at least one"):
             eng.classify([])
 

@@ -70,13 +70,14 @@ def test_adam_matches_optax(moments):
     opt = tr.adam_optimizer(1e-3, moments)
     jp = jax.tree_util.tree_map(jnp.asarray, p)
     js = jopt.init(jp)
-    params, _ = params_from_numpy(p, {"layers": []})
+    params, _ = params_from_numpy(p, {"layers": []}, device="cpu")
     st = opt.init(params)
     for _ in range(5):
         g = _grads(rng, p)
         ju, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
         jp = optax.apply_updates(jp, ju)
-        u, st = opt.update(params_from_numpy(g, {"layers": []})[0], st)
+        u, st = opt.update(params_from_numpy(g, {"layers": []},
+                device="cpu")[0], st)
         params = tr._tree_map(lambda a, b: a + b, params, u)
         _leaves_close(params_to_numpy(u, {"layers": []})[0], ju, atol=1e-6,
                       rtol=0)
@@ -93,7 +94,7 @@ def test_adam_state_round_trip():
     rng = np.random.default_rng(1)
     _, _, p, _ = _jax_init()
     mu, nu = _grads(rng, p), _grads(rng, p)
-    st = adam_state_from_numpy(np.int32(9), mu, nu)
+    st = adam_state_from_numpy(np.int32(9), mu, nu, device="cpu")
     count, mu2, nu2 = adam_state_to_numpy(st)
     assert int(count) == 9 and st["count"].dtype == torch.int32
     _leaves_close(mu2, mu, atol=0, rtol=0)
@@ -118,11 +119,12 @@ def test_apply_update_order_matches_jax():
         jopt.init(jp), jcs)
     con = make_simple_norm_constraint(0.5, n_iter=8)
     opt = tr.adam_optimizer(0.05)
-    params, _ = params_from_numpy(p, {"layers": []})
+    params, _ = params_from_numpy(p, {"layers": []}, device="cpu")
     p2, o2, cs2 = tr.apply_update(
-        opt, cfg, con.apply, params_from_numpy(g, {"layers": []})[0], params,
+        opt, cfg, con.apply, params_from_numpy(g, {"layers": []},
+                device="cpu")[0], params,
         opt.init(params), cstate_from_numpy(
-            jax.tree_util.tree_map(np.asarray, jcs)))
+            jax.tree_util.tree_map(np.asarray, jcs), device="cpu"))
     _leaves_close(params_to_numpy(p2, {"layers": []})[0], jp2, atol=2e-6,
                   rtol=1e-5)
     assert all(bool((layer["w"] >= 0).all()) for layer in p2["layers"])
@@ -150,7 +152,8 @@ def test_epoch_program_matches_jax():
     jopt = jtr.adam_optimizer(1e-3)
     jp = jax.tree_util.tree_map(jnp.asarray, p)
     jcs = jcon.init(jp)
-    cs = cstate_from_numpy(jax.tree_util.tree_map(np.asarray, jcs))
+    cs = cstate_from_numpy(jax.tree_util.tree_map(np.asarray, jcs),
+            device="cpu")
     jep = jes.build_epoch_fn(jcfg, jopt, jcon.apply, batch_size=64,
                              shuffle=False)
     jout = jep(jp, jax.tree_util.tree_map(jnp.asarray, s), jopt.init(jp),
@@ -158,7 +161,7 @@ def test_epoch_program_matches_jax():
                jax.random.PRNGKey(1), n_true=n_true)
     con = make_simple_norm_constraint(0.5, n_iter=8)
     opt = tr.adam_optimizer(1e-3)
-    params, state = params_from_numpy(p, s)
+    params, state = params_from_numpy(p, s, device="cpu")
     ep = es.build_epoch_fn(cfg, opt, con.apply, batch_size=64, shuffle=False)
     out = ep(params, state, opt.init(params), cs, torch.from_numpy(d),
              torch.from_numpy(lab).long(), None, None, n_true)
@@ -178,7 +181,7 @@ def test_eval_program_matches_jax():
         jax.tree_util.tree_map(jnp.asarray, p),
         jax.tree_util.tree_map(jnp.asarray, s), jnp.asarray(d),
         jnp.asarray(lab), n_true=n_true)
-    params, state = params_from_numpy(p, s)
+    params, state = params_from_numpy(p, s, device="cpu")
     loss, acc = es.build_eval_fn(cfg, batch_size=32)(
         params, state, torch.from_numpy(d), torch.from_numpy(lab).long(),
         n_true)
@@ -201,8 +204,9 @@ def _fit_both(resident, epochs=3):
     con = make_simple_norm_constraint(0.5, n_iter=8)
     t = tr.Trainer(cfg, tr.TrainConfig(epoch_backend="plain", **tkw),
                    constraint=con.apply, constraint_state=cstate_from_numpy(
-                       jax.tree_util.tree_map(np.asarray, jcs)))
-    params, state = params_from_numpy(p, s)
+                       jax.tree_util.tree_map(np.asarray, jcs), device="cpu"),
+                               device="cpu")
+    params, state = params_from_numpy(p, s, device="cpu")
     return jres, t.fit(x, y, vx, vy, params=params, state=state)
 
 
@@ -232,7 +236,7 @@ def test_fit_early_stopping_and_io_options():
     x, y = blobs_task(rng, n=128, d=20, k=4)
     cfg = mlp.MLPConfig(**dict(KW, batch_norm=False))
     t = tr.Trainer(cfg, tr.TrainConfig(batch_size=64, epochs=50, patience=2,
-                                       learning_rate=0.0))
+                                       learning_rate=0.0), device="cpu")
     res = t.fit(x, y, x[:32], y[:32])
     assert res["epochs_run"] == 3  # val_loss never improves after epoch 1
     assert len(res["history"]["val_loss"]) == 3
@@ -252,7 +256,7 @@ def test_fgsm_matches_jax():
     x[0] = 0.0  # rows whose gradient has exact zeros after ReLU
     jx = jfgsm(lambda xx: jmlp.apply_mlp(jcfg, p, s, xx)[0], jnp.asarray(x),
                jnp.asarray(y), 0.1)
-    params, state = params_from_numpy(p, s)
+    params, state = params_from_numpy(p, s, device="cpu")
     got = fgsm(lambda xx: mlp.apply_mlp(cfg, params, state, xx)[0],
                torch.from_numpy(x), torch.from_numpy(y).long(), 0.1)
     np.testing.assert_allclose(got.numpy(), np.asarray(jx), atol=1e-6)
