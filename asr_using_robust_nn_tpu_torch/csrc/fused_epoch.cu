@@ -58,11 +58,7 @@
 #include <cstdint>
 #include <type_traits>
 
-// Adam's constants, passed by pointer from the host and by value to kernels.
-// Outside the anonymous namespace: the C entries that take it are exported.
-struct AdamArgs {
-  float lr, b1, b2, omb1, omb2, eps, logb1, logb2;
-};
+#include "adam_common.cuh"  // AdamArgs, bias_corrections, adam_step
 
 namespace {
 
@@ -77,25 +73,6 @@ constexpr int RT = 256;                   // row / reduction kernels
 struct SmallRows {  // this layer's rows of the small (m, dmax) arrays
   float* p[9];      // gamma, m_gamma, v_gamma, beta, m_beta, v_beta, b, m_b, v_b
 };
-
-__device__ __forceinline__ void bias_corrections(const int* count, int step,
-                                                 const AdamArgs& a, float& bc1,
-                                                 float& bc2) {
-  const float t = static_cast<float>(count[0] + step + 1);
-  bc1 = 1.f - expf(t * a.logb1);
-  bc2 = 1.f - expf(t * a.logb2);
-}
-
-__device__ __forceinline__ void adam_step(float& p, float& m, float& v,
-                                          float g, float bc1, float bc2,
-                                          const AdamArgs& a) {
-  const float mn = a.b1 * m + a.omb1 * g;
-  const float vn = a.b2 * v + a.omb2 * g * g;
-  const float upd = (mn / bc1) / (sqrtf(vn / bc2) + a.eps);
-  p = p - a.lr * upd;
-  m = mn;
-  v = vn;
-}
 
 __device__ __forceinline__ void adam_col(float* p, float* m, float* v, int c,
                                          float g, float bc1, float bc2,

@@ -9,6 +9,12 @@ a dict), the simple_norm constraint state {"u"} and the fused epoch's packed
 state (`pack_state`'s dict). The JAX side is handled as numpy arrays
 (`np.asarray` of each leaf; bf16 leaves cross as float32, which is exact),
 so nothing here imports JAX.
+
+Every conversion is leaf by leaf, so two things hold without special cases:
+a per-step (K6) packed state crosses unchanged, with `scales` != 1 and its
+own `w16` (no fold into the masters, no recast of the bf16 copies), and a
+multi-run state, every leaf stacked on a leading runs axis (Adam's `count`
+then has shape (R,)), crosses as it is.
 """
 
 from __future__ import annotations
@@ -72,11 +78,10 @@ def params_to_numpy(params: dict, state: dict) -> tuple[dict, dict]:
 def adam_state_from_numpy(count, mu: dict, nu: dict, device=None,
                           moments_dtype=torch.float32) -> dict:
     """optax ScaleByAdamState fields (count, mu, nu) -> the port's Adam state
-    {"count": int32 0-d tensor, "mu", "nu"} on `device` (None: the CUDA
-    device)."""
+    {"count": int32 tensor (0-d, or (R,) for a stacked multi-run state),
+    "mu", "nu"} on `device` (None: the CUDA device)."""
     device = resolve_device(device)
-    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32,
-                                  device=device),
+    return {"count": _tensor(count, device, torch.int32),
             "mu": _map_layers(mu, lambda v: _tensor(v, device, moments_dtype)),
             "nu": _map_layers(nu, lambda v: _tensor(v, device, moments_dtype))}
 
@@ -84,7 +89,7 @@ def adam_state_from_numpy(count, mu: dict, nu: dict, device=None,
 def adam_state_to_numpy(opt_state: dict) -> tuple:
     """The port's Adam state -> (count, mu, nu) as numpy (float32 moments),
     the fields of optax's ScaleByAdamState."""
-    return (np.int32(int(opt_state["count"])),
+    return (_numpy(opt_state["count"]).astype(np.int32)[()],
             _map_layers(opt_state["mu"], _numpy),
             _map_layers(opt_state["nu"], _numpy))
 

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` file has a plain C interface. At first use it is
 compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under the
 package's git-ignored `_build/` directory and loaded with ctypes. The
-library's file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing here runs at import
+library's file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an unchanged
+one is reused. Nothing here runs at import
 time: the CPU tests import every module on machines without `nvcc`.
 """
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

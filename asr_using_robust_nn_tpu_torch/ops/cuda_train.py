@@ -24,7 +24,8 @@ state both run on. Counterpart of the JAX package's `ops/pallas_train.py`
 Both the twin and the kernels run one step program, `_step`, over one set
 of buffers; only the operations differ (`_PlainOps`, `_CudaOps`). A CUDA
 tensor never falls back to the twin. `build_fused_epoch_call.launches` counts
-graph replays.
+graph replays. K6, the per-step form with deferred constraint scales, is
+ops/cuda_step.py: the same `_step` with two operations swapped.
 """
 
 from __future__ import annotations
@@ -450,17 +451,26 @@ class _PlainOps:
     def gemm_dx(self, dzb, w16, out):
         out.copy_(dzb.float() @ w16.float().T)
 
+    def load_master(self, fs, i):
+        """The fp32 master Adam starts from (K3: kept current)."""
+        return fs["masters"][i]
+
     def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
         g = acts.float().T @ dzb.float()
         bc1, bc2 = self._bc(count, s)
-        wn, mn, vn = self._adam(fs["masters"][i], fs["mw"][i], fs["vw"][i], g,
-                                bc1, bc2)
+        wn, mn, vn = self._adam(self.load_master(fs, i), fs["mw"][i],
+                                fs["vw"][i], g, bc1, bc2)
         if self.spec.cfg.nonneg:
             wn = torch.clamp_min(wn, 0.0)
         fs["masters"][i].copy_(wn)
         fs["mw"][i].copy_(mn)
         fs["vw"][i].copy_(vn)
         fs["w16"][i].copy_(wn.to(_BF16))
+
+    def rescale(self, fs, i, f):
+        """Apply layer i's projection factor (K3: eagerly, masters too)."""
+        fs["w16"][i].copy_((fs["w16"][i].float() * f).to(_BF16))
+        fs["masters"][i].mul_(f)
 
     def project(self, fs, sc):
         spec = self.spec
@@ -472,8 +482,7 @@ class _PlainOps:
         inv_m = float(np.float32(1.0 / m))
         for i in range(m):
             f = torch.exp(torch.log(spec.rho / (sigma + _EPS)) * inv_m)
-            fs["w16"][i].copy_((fs["w16"][i].float() * f).to(_BF16))
-            fs["masters"][i].mul_(f)
+            self.rescale(fs, i, f)
             sigma = sigma * f
 
     def count_add(self, count, n):
@@ -508,7 +517,8 @@ def _lib():
 
 def _check(name, rc):
     if rc != 0:
-        raise RuntimeError(f"fused_epoch {name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused training kernel {name} launch failed: CUDA "
+                           f"error {rc}")
 
 
 class _CudaOps:
@@ -748,7 +758,8 @@ build_fused_epoch_call.launches = 0
 
 def build_fused_epoch_fn(spec: FusedStepSpec, shuffle: bool = True,
                          epochs_per_call: int = 1,
-                         reshuffle_inner: bool = False):
+                         reshuffle_inner: bool = False,
+                         scan_steps: bool = False):
     """-> `epoch(fstate, data_pad, labels, perm_gen, drop_gen, n_true)` ->
     (fstate', mean_loss, mean_acc): the fused counterpart of
     `train/epoch_scan.py::build_epoch_fn` on the packed state. `data_pad` is
@@ -758,11 +769,23 @@ def build_fused_epoch_fn(spec: FusedStepSpec, shuffle: bool = True,
 
     K3 runs whole 64-row tiles, so each batch is padded to a multiple of 64
     with rows of weight 0, which the BN statistics, the CCE and every
-    gradient ignore (the dropout draw of a real row does not change)."""
+    gradient ignore (the dropout draw of a real row does not change).
+
+    `scan_steps=True` runs the epoch as a chain of K6 steps instead
+    (ops/cuda_step.py::build_fused_step: one graph replay per step, any
+    number of batches through one captured graph, no host synchronization
+    between steps), with the same shuffle, seeds and weighted means. Its
+    result carries the last step's deferred `scales` and its own `w16`; the
+    grid path folds such scales into the masters before K3 runs."""
     B = spec.batch
     run_spec = dataclasses.replace(spec, batch=_pad_to(B, 64))
     pad = run_spec.batch - B
     calls: dict = {}
+    step = None
+    if scan_steps:
+        from .cuda_step import build_fused_step
+
+        step = build_fused_step(run_spec)
 
     def one_epoch(fstate, batches, drop_gen):
         xs, ys, ws = batches
@@ -780,6 +803,10 @@ def build_fused_epoch_fn(spec: FusedStepSpec, shuffle: bool = True,
                                   dtype=torch.int32)
         ns = torch.sum(ws, 1)
         total = torch.sum(ns)
+        if step is not None:
+            fstate, losses, accs = step.chain(fstate, xs, ys, ws, seeds)
+            return (fstate, torch.sum(losses * ns) / total,
+                    torch.sum(accs * ns) / total)
         run = calls.get(n_batches)
         if run is None:
             run = calls[n_batches] = build_fused_epoch_call(run_spec,

@@ -1,0 +1,450 @@
+"""Multi-run training: R independent trainings on one device-resident split.
+
+Counterpart of the JAX package's `train/multi_run.py`. The thesis protocol
+is many runs (seed studies, constraint-strength sweeps); here R sets of
+(params, optimizer state, constraint state, generators) train on the same
+split, stacked on a leading runs axis. The JAX version vmaps the plain epoch
+over that axis and scans the fused epoch over it; the port loops over the
+runs in both backends (each run of the fused backend replays K3's CUDA graph
+with that run's state; the batched plain form is later work), so run r is
+exactly what a solo run of seed r computes.
+
+Two sweep axes compose, in any combination:
+
+- seeds: per-run inits, shuffles and dropout draws (`init_multi_run_state`),
+  each derived as `Trainer.fit` derives them for `TrainConfig(seed=s)`:
+  init from `_generator(device, s, 0)`, the shuffle of an epoch from
+  `_generator(device, s, 1, epoch or 0)`, its dropout from
+  `_generator(device, s, 2, epoch)`.
+- constraint strength rho: `constraint_factory` (a `constraints/engine.py`
+  factory) plus one rho per run.
+
+Per-run early stopping and best-snapshot retention stay exact by freezing:
+once a run's patience is exhausted its state is carried over bit for bit
+(the `active` mask), so its trajectory, best snapshot and validation metrics
+are those of a run that stopped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.mlp import MLPConfig, init_mlp
+from ..utils.device import resolve_device
+from .epoch_scan import epoch_program, eval_program
+from .trainer import _generator, _tree_map, adam_optimizer
+
+__all__ = [
+    "init_multi_run_state",
+    "build_multi_run_epoch_fn",
+    "build_multi_run_eval_fn",
+    "init_multi_run_fused_state",
+    "build_multi_run_fused_epoch_fn",
+    "fold_runs",
+    "fit_multi_run",
+]
+
+
+def _stack(trees):
+    """A list of equal trees -> one tree with a leading runs axis."""
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _run(tree, r):
+    """Run r's tree (views) out of a stacked tree."""
+    return _tree_map(lambda t: t[r], tree)
+
+
+def _run_keys(seeds):
+    """Per-run key words of the shuffle and the dropout generators."""
+    seeds = [int(s) for s in np.asarray(seeds, np.uint32)]
+    return seeds, [(s, 1) for s in seeds], [(s, 2) for s in seeds]
+
+
+def fold_runs(keys, word: int, device) -> list:
+    """One torch.Generator per run on `device`, seeded from the run's key
+    words and `word` (the epoch): the port's stand-in for vmapped
+    `jax.random.fold_in`."""
+    return [_generator(device, *k, word) for k in keys]
+
+
+def init_multi_run_fused_state(spec, seeds, device=None):
+    """Packed fused states for R runs, stacked on a leading runs axis ->
+    (fstates, perm_keys, drop_keys). Run r's init is `Trainer.fit`'s for
+    seed seeds[r]; the keys go to `fold_runs`."""
+    from ..ops.cuda_train import pack_state
+
+    dev = resolve_device(device)
+    seeds, kps, kds = _run_keys(seeds)
+    packed = [pack_state(spec, *init_mlp(spec.cfg, _generator(dev, s, 0),
+                                         device=dev)) for s in seeds]
+    return _stack(packed), kps, kds
+
+
+def build_multi_run_fused_epoch_fn(spec, *, shuffle: bool = True,
+                                   epochs_per_call: int = 1,
+                                   reshuffle_inner: bool = False):
+    """R independent trainings through the fused epoch (K3): a loop over the
+    runs axis of stacked packed states, each run one call of
+    `build_fused_epoch_fn`'s epoch (on a card: one replay of the one captured
+    CUDA graph per epoch) with that run's state.
+
+    -> `fn(fstates, data_pad, labels, perm_gens, drop_gens, active, n_true)`
+    -> (fstates', mean_loss[R], mean_acc[R]). `data_pad` is the shared
+    split, feature-padded (`pad_features`) and row-padded to a multiple of
+    spec.batch; `perm_gens`/`drop_gens` are per-run generator lists
+    (`fold_runs`); `active` is an optional bool [R] mask: an inactive run is
+    not trained, its state is carried over bit for bit and its loss and
+    accuracy read NaN. `fstates` is not modified."""
+    from ..ops.cuda_train import build_fused_epoch_fn
+
+    ep = build_fused_epoch_fn(spec, shuffle=shuffle,
+                              epochs_per_call=epochs_per_call,
+                              reshuffle_inner=reshuffle_inner)
+
+    def fn(fstates, data_pad, labels, perm_gens, drop_gens, active, n_true):
+        n_runs = fstates["count"].shape[0]
+        out = _tree_map(lambda t: t.clone(), fstates)
+        nan = torch.full((), float("nan"), device=data_pad.device)
+        losses, accs = [nan] * n_runs, [nan] * n_runs
+        for r in range(n_runs):
+            if active is not None and not bool(active[r]):
+                continue
+            fs2, losses[r], accs[r] = ep(
+                _run(fstates, r), data_pad, labels, perm_gens[r],
+                drop_gens[r], n_true)
+            _tree_map(lambda dst, src: dst[r].copy_(src), out, fs2)
+        return out, torch.stack(losses), torch.stack(accs)
+
+    return fn
+
+
+def init_multi_run_state(model_cfg: MLPConfig, optimizer, seeds,
+                         constraint_init=None, mesh=None, device=None):
+    """-> (params, state, opt_state, cstate, perm_keys, drop_keys): the four
+    trees stacked on a leading runs axis of len(seeds) (`cstate` is () with
+    no `constraint_init`), the keys per-run words for `fold_runs`.
+
+    Run r sees the init, shuffles and dropout draws of a solo
+    `Trainer.fit` with `TrainConfig(seed=seeds[r])`. `constraint_init` is a
+    `Constraint.init` (params -> cstate); every engine constraint's init
+    depends only on the kernels' shapes."""
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+    seeds, kps, kds = _run_keys(seeds)
+    runs = []
+    for s in seeds:
+        params, state = init_mlp(model_cfg, _generator(dev, s, 0), device=dev)
+        cstate = () if constraint_init is None else constraint_init(params)
+        runs.append((params, state, optimizer.init(params), cstate))
+    params, state, opt_state, cstate = _stack(runs)
+    return params, state, opt_state, cstate, kps, kds
+
+
+def build_multi_run_epoch_fn(
+    model_cfg: MLPConfig,
+    optimizer,
+    constraint=None,
+    *,
+    constraint_factory=None,
+    batch_size: int = 256,
+    shuffle: bool = True,
+    epochs_per_call: int = 1,
+    reshuffle_inner: bool = True,
+    mesh=None,
+):
+    """-> `fn(params, state, opt_state, cstate, data, labels, perm_gens,
+    drop_gens, active, rhos, n_true)` where the four train-state trees are
+    stacked on a leading runs axis, the generators are per-run lists
+    (`fold_runs`; `drop_gens` None: no dropout) and `data`/`labels` are
+    shared (padded to a multiple of batch_size).
+
+    `active` is an optional bool [R] mask: an inactive run is not trained,
+    its state is carried over bit for bit and its loss and accuracy read
+    NaN. `rhos` is a float [R] vector consumed by `constraint_factory` (None
+    with a fixed `constraint`); only one of `constraint` /
+    `constraint_factory` may be given. Returns stacked (params, state,
+    opt_state, cstate, mean_loss[R], mean_acc[R]); the inputs are not
+    modified. The runs are a loop over `train/epoch_scan.py::epoch_program`,
+    so run r equals the solo epoch of its seed and rho exactly."""
+    if constraint is not None and constraint_factory is not None:
+        raise ValueError("pass either constraint or constraint_factory")
+    _no_mesh(mesh)
+
+    def fn(params, state, opt_state, cstate, data, labels, perm_gens,
+           drop_gens, active, rhos, n_true):
+        trees = (params, state, opt_state, cstate)
+        n_runs = opt_state["count"].shape[0]
+        out = _tree_map(lambda t: t.clone(), trees)
+        nan = torch.full((), float("nan"), device=data.device)
+        losses, accs = [nan] * n_runs, [nan] * n_runs
+        for r in range(n_runs):
+            if active is not None and not bool(active[r]):
+                continue
+            con = (constraint_factory(float(rhos[r])).apply
+                   if constraint_factory is not None else constraint)
+            epoch = epoch_program(
+                model_cfg, optimizer, con, batch_size=batch_size,
+                shuffle=shuffle, epochs_per_call=epochs_per_call,
+                reshuffle_inner=reshuffle_inner)
+            *new, losses[r], accs[r] = epoch(
+                *_run(trees, r), data, labels, perm_gens[r],
+                None if drop_gens is None else drop_gens[r], n_true)
+            _tree_map(lambda dst, src: dst[r].copy_(src), out, tuple(new))
+        return (*out, torch.stack(losses), torch.stack(accs))
+
+    return fn
+
+
+def build_multi_run_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024,
+                            mesh=None):
+    """-> `evaluate(params, state, data, labels, n_true)` with params/state
+    stacked on a runs axis -> (val_loss[R], val_acc[R])."""
+    _no_mesh(mesh)
+    evaluate = eval_program(model_cfg, batch_size=batch_size)
+
+    def fn(params, state, data, labels, n_true):
+        n_runs = params["layers"][0]["w"].shape[0]
+        outs = [evaluate(_run(params, r), _run(state, r), data, labels,
+                         n_true) for r in range(n_runs)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    return fn
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: sharding the runs axis over devices is not ported yet "
+            "(ROADMAP.md queue 1 item 10, the parallel slice)")
+
+
+def _where_runs(better, new, old):
+    """Per-run select over stacked trees: better is bool [R]."""
+    def sel(n, o):
+        return torch.where(better.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+
+    return _tree_map(sel, new, old)
+
+
+def fit_multi_run(
+    model_cfg: MLPConfig,
+    train_cfg,
+    train_x,
+    train_y,
+    val_x,
+    val_y,
+    seeds,
+    *,
+    constraint=None,
+    constraint_init=None,
+    constraint_factory=None,
+    rhos=None,
+    mesh=None,
+    epoch_backend: str = "plain",
+    device=None,
+) -> dict:
+    """Train len(seeds) runs to early stopping on one device-resident split;
+    the multi-run analog of `Trainer.fit(device_resident=True)` with the same
+    per-run semantics (generator derivation, epoch math, Keras EarlyStopping
+    patience on val_loss, best-snapshot retention), except that early
+    stopping is evaluated per run at `epochs_per_dispatch` granularity and
+    finished runs are frozen while the rest continue. Everything runs on
+    `device` (None: the CUDA device; "cpu" for the CPU).
+
+    Pass a fixed `constraint` (+ `constraint_init`) for a seed study, or
+    `constraint_factory` + `rhos` (one per run) for a constraint-strength
+    sweep; seeds and rhos pair elementwise.
+
+    `epoch_backend="fused"` trains each chunk through the fused epoch (K3 on
+    a card, its twin on the CPU; `build_multi_run_fused_epoch_fn`): either no
+    constraint or the full simple_norm at a fixed rho. The default is
+    "plain" (`train/epoch_scan.py`, autograd): dropout draws differ between
+    the backends, so a seed study must not switch engines between merged
+    invocations.
+
+    Returns a dict of stacked results, runs axis leading: params, state,
+    opt_state, constraint_state (device tensors), best_params / best_state /
+    best_opt_state (host tensors), best_val_loss [R], best_epoch [R],
+    epochs_run [R] and history arrays of shape [n_chunks, R] (numpy). After
+    a run freezes, its val_loss/val_acc rows repeat its frozen values and its
+    train loss/acc rows read NaN; epochs_run[r] marks where run r's history
+    ends."""
+    from ..parallel.mesh import pad_to_multiple
+
+    if constraint is not None and constraint_factory is not None:
+        raise ValueError("pass either constraint or constraint_factory")
+    if (constraint_factory is None) != (rhos is None):
+        raise ValueError("constraint_factory and rhos go together")
+    if len(val_x) == 0:
+        raise ValueError(
+            "fit_multi_run() needs a non-empty validation split (early "
+            "stopping and best-snapshot retention monitor val_loss)")
+    cfg = train_cfg
+    if cfg.epochs_per_dispatch < 1:
+        raise ValueError(f"TrainConfig.epochs_per_dispatch must be >= 1, got "
+                         f"{cfg.epochs_per_dispatch}")
+    if epoch_backend not in ("plain", "fused"):
+        raise ValueError(f"unknown epoch_backend {epoch_backend!r} (valid: "
+                         f"plain, fused)")
+    _no_mesh(mesh)
+    use_fused = epoch_backend == "fused"
+    if use_fused:
+        kind = getattr(constraint, "_asrtpu_kind", None)
+        meta = getattr(constraint, "_asrtpu_meta", None) or {}
+        if constraint_factory is not None or (
+                constraint is not None
+                and not (kind == "simple_norm" and meta.get("affected_all"))):
+            raise ValueError(
+                "epoch_backend='fused' supports either no constraint or the "
+                "full (all-layers) simple_norm at a fixed rho: the "
+                "configurations the fused epoch implements (pass "
+                "epoch_backend='plain' otherwise)")
+    seeds = np.asarray(seeds)
+    n_runs = len(seeds)
+    rho_list = None
+    if constraint_factory is not None:
+        rho_list = np.asarray(rhos, np.float32)
+        if rho_list.shape != (n_runs,):
+            raise ValueError(f"rhos must have one entry per run: got "
+                             f"{rho_list.shape} for {n_runs} runs")
+        if constraint_init is None:
+            # every engine constraint's init is independent of rho
+            constraint_init = constraint_factory(1.0).init
+
+    dev = resolve_device(device)
+    bs = cfg.batch_size
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    d_tr, n_true = pad_to_multiple(np.asarray(train_x, np.float32), bs)
+    l_tr, _ = pad_to_multiple(np.asarray(train_y, np.int64), bs)
+    vx = np.asarray(val_x, np.float32)
+    vy = np.asarray(val_y, np.int64)
+    vb = 1024 if len(vx) >= 1024 else max(8, len(vx))
+    d_v, _ = pad_to_multiple(vx, vb)
+    l_v, _ = pad_to_multiple(vy, vb)
+    d_train, l_train = put(d_tr, torch.float32), put(l_tr, torch.int64)
+    d_val, l_val = put(d_v, torch.float32), put(l_v, torch.int64)
+
+    optimizer = adam_optimizer(cfg.learning_rate, cfg.adam_moments_dtype)
+    fstates = spec = None
+    params = state = opt_state = cstate = None
+    if use_fused:
+        from ..ops.cuda_train import (FusedStepSpec, pad_features,
+                                      unpack_opt_state, unpack_params)
+
+        meta = getattr(constraint, "_asrtpu_meta", None) or {}
+        con = constraint is not None
+        spec = FusedStepSpec(cfg=model_cfg, batch=bs, lr=cfg.learning_rate,
+                             rho=meta["rho"] if con else None,
+                             pi_iters=meta.get("n_iter", 4) if con else 4)
+        fstates, key_perm, key_drop = init_multi_run_fused_state(
+            spec, seeds, device=dev)
+        data_fused = pad_features(spec, d_train)
+
+        def unpack_all(fs_stacked):
+            """-> stacked (params, state, opt_state) of every run."""
+            runs = []
+            for r in range(n_runs):
+                fs_r = _run(fs_stacked, r)
+                p_r, s_r = unpack_params(spec, fs_r)
+                runs.append((p_r, s_r, unpack_opt_state(spec, fs_r, optimizer,
+                                                        p_r)))
+            return _stack(runs)
+
+        def make_epoch_fn(e_per_call):
+            return build_multi_run_fused_epoch_fn(
+                spec, shuffle=cfg.shuffle, epochs_per_call=e_per_call,
+                reshuffle_inner=cfg.reshuffle_each_epoch)
+    else:
+        params, state, opt_state, cstate, key_perm, key_drop = (
+            init_multi_run_state(model_cfg, optimizer, seeds,
+                                 constraint_init, device=dev))
+
+        def make_epoch_fn(e_per_call):
+            return build_multi_run_epoch_fn(
+                model_cfg, optimizer, constraint,
+                constraint_factory=constraint_factory, batch_size=bs,
+                shuffle=cfg.shuffle, epochs_per_call=e_per_call,
+                reshuffle_inner=cfg.reshuffle_each_epoch)
+
+    epoch_fns = {cfg.epochs_per_dispatch: make_epoch_fn(
+        cfg.epochs_per_dispatch)}
+    eval_fn = build_multi_run_eval_fn(model_cfg, batch_size=vb)
+
+    best_val = np.full((n_runs,), np.inf, np.float64)
+    best = None  # the stacked snapshot on the device, per run
+    best_epoch = np.zeros((n_runs,), np.int64)
+    wait = np.zeros((n_runs,), np.int64)
+    epochs_run = np.zeros((n_runs,), np.int64)
+    history = {"loss": [], "acc": [], "val_loss": [], "val_acc": []}
+
+    ep_stride = cfg.epochs_per_dispatch
+    for epoch in range(0, cfg.epochs, ep_stride):
+        active_np = wait < cfg.patience
+        if not active_np.any():
+            break
+        this_stride = min(ep_stride, cfg.epochs - epoch)
+        if this_stride not in epoch_fns:
+            epoch_fns[this_stride] = make_epoch_fn(this_stride)
+        pg = fold_runs(key_perm, epoch if cfg.reshuffle_each_epoch else 0,
+                       dev)
+        dg = fold_runs(key_drop, epoch, dev)
+        if use_fused:
+            fstates, mloss, macc = epoch_fns[this_stride](
+                fstates, data_fused, l_train, pg, dg, active_np, n_true)
+            params, state, opt_state = unpack_all(fstates)
+        else:
+            params, state, opt_state, cstate, mloss, macc = epoch_fns[
+                this_stride](params, state, opt_state, cstate, d_train,
+                             l_train, pg, dg, active_np, rho_list, n_true)
+        vl, va = eval_fn(params, state, d_val, l_val, len(vx))
+        vl_np = vl.double().cpu().numpy()
+        history["loss"].append(mloss.cpu().numpy())
+        history["acc"].append(macc.cpu().numpy())
+        history["val_loss"].append(vl_np)
+        history["val_acc"].append(va.cpu().numpy())
+        epochs_run += np.where(active_np, this_stride, 0)
+
+        improved = (vl_np < best_val) & active_np
+        cur = (params, state, opt_state)
+        if best is None:
+            best = _tree_map(lambda t: t.clone(), cur)
+        else:
+            best = _where_runs(torch.as_tensor(improved, device=dev), cur,
+                               best)
+        best_val = np.where(improved, vl_np, best_val)
+        best_epoch = np.where(improved, epochs_run, best_epoch)
+        # Keras EarlyStopping per run: reset on improvement, else add the
+        # whole dispatch's epochs (Trainer.fit does the same)
+        wait = np.where(improved, 0,
+                        wait + np.where(active_np, this_stride, 0))
+
+    if use_fused:
+        if params is None:  # epochs == 0
+            params, state, opt_state = unpack_all(fstates)
+        cstate = ({"u": fstates["u"][:, 0, :model_cfg.n_classes].clone()}
+                  if constraint is not None else ())
+    if best is None:
+        best = (params, state, opt_state)
+    best_params, best_state, best_opt = _tree_map(
+        lambda t: t.detach().cpu().clone(), best)
+    return {
+        "params": params,
+        "state": state,
+        "opt_state": opt_state,
+        "constraint_state": cstate,
+        "best_params": best_params,
+        "best_state": best_state,
+        "best_opt_state": best_opt,
+        "best_val_loss": best_val,
+        "best_epoch": best_epoch,
+        "epochs_run": epochs_run,
+        "history": {k: np.stack(v) if v else np.zeros((0, n_runs))
+                    for k, v in history.items()},
+    }

@@ -8,9 +8,9 @@ Needs one CUDA device and nvcc; imports nothing of JAX. Phases, each of
 which raises on failure (the exit code is then non-zero):
 
   build    compile csrc/dft_power_mel.cu (K1), product_power_iter.cu (K2),
-           fused_epoch.cu (K3), int8_dft_power_mel.cu (K4) and
-           dft_power_mel_x3.cu (K5) from the checkout, one nvcc each, all
-           started together; print the build times and the compiler's
+           fused_epoch.cu (K3), int8_dft_power_mel.cu (K4),
+           dft_power_mel_x3.cu (K5) and fused_step.cu (K6) from the checkout,
+           one nvcc each, all started together; print the build times and the compiler's
            register/shared-memory reports;
   kernel   K1 (`mel_power_cuda`) against its plain fp32 twin and an f64
            chain on the card, both presets, B in {1, 3} (ragged row counts)
@@ -47,7 +47,19 @@ which raises on failure (the exit code is then non-zero):
            its loss, reach val accuracy > 0.2 and land the product norm
            <= 1.5 rho; the same fit on the plain epoch within 0.15 val
            accuracy; a streaming fit of 1 epoch launching K2 once per step;
-           evaluation and FGSM at eps 0.1;
+           evaluation and FGSM at eps 0.1. K6 (`build_fused_step`, one
+           constrained step per call with deferred constraint scales)
+           against its twin `fused_steps_plain` after 1 and 33 full-width
+           steps at dropout 0 and the recipe's, on params (scales folded),
+           BN means, loss/accuracy, Adam moments, `scales` and u; the folded
+           masters against the stored bf16 copies (a planted double fold
+           must fail); scales = 1 after an unconstrained step; then the
+           epoch as a chain of K6 steps (`build_fused_epoch_fn(scan_steps=
+           True)`) against the K3 epoch, and a K3 epoch on top, with the
+           product norm held in [rho/1.5, 1.5 rho]; K6 launches = steps.
+           `fit_multi_run` with 4 seeds on the fused backend against solo
+           `Trainer.fit`s, a frozen run bit for bit, and a rho sweep on the
+           plain backend;
   prepare  the data-preparation path: seeded synthetic WAV corpora written
            to a temporary directory (digit: ten word folders of 0.4-1.0 s
            int16 files at 16 kHz; speaker: 20 folders of 6-10 s recordings
@@ -64,7 +76,9 @@ which raises on failure (the exit code is then non-zero):
            beside each the request's host-to-device copy and K1 timed alone;
            K2 against its twin at n_iter 4 and 16; K3 per epoch against its
            twin and against the plain epoch (fp32 and bf16), with K3's
-           TFLOP/s; K4 and K5 against their twins, K1 and the fp32 chain at
+           TFLOP/s; K6 per step (graph replay, whole call, chain) against
+           its twin, K3 per step and the autograd step, and the multi-run
+           epoch per run on both backends; K4 and K5 against their twins, K1 and the fp32 chain at
            1024 rows (K4 also at 256, the featurizer's batch); the
            torch.fft.rfft -> abs()**2 -> matmul chain and
            torch.linalg.matrix_norm as library yardsticks; each kernel's
@@ -790,6 +804,347 @@ def k3_phase(dev, split, batch=512):
     return out
 
 
+# -- kernel phase: K6 -----------------------------------------------------------
+
+def k6_phase(dev, k3_args):
+    """K6 (`build_fused_step`) against its twin on the K3 phase's state and
+    batches, after 1 and 33 steps, at dropout 0 and at the recipe's dropout;
+    the deferred scales' semantics; then the main path: a `scan_steps` epoch
+    and a K3 epoch after it through `build_fused_epoch_fn`. Returns the
+    errors, the launch count of the main path and the timing inputs."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops import cuda_step as k6
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+    class DoubleFoldOps(k6._PlainStepOps):
+        """A planted fault: the rescale multiplies the masters too, so the
+        factor is applied eagerly AND at the next load or unpack."""
+
+        def rescale(self, fs, i, f):
+            super().rescale(fs, i, f)
+            fs["masters"][i].mul_(f)
+
+    spec_r, _, (fs, xs, ys, ws, seeds), data, labels, n_rows, _, _ = k3_args
+    ys, ws = ys[:, :, 0], ws[:, :, 0]
+    steps, rho = xs.shape[0], spec_r.rho
+    zero = (0.0,) * len(spec_r.cfg.dropout)
+
+    def norms(spec, f):
+        """(product norm of the unpacked parameters, of the stored bf16
+        copies): equal up to bf16 rounding iff `scales` was folded once."""
+        pp, _ = ct.unpack_params(spec, f)
+        return (product_norm([p["w"].cpu().numpy() for p in pp["layers"]]),
+                product_norm([w.float().cpu().numpy() for w in f["w16"]]))
+
+    def fold_ok(spec, f):
+        folded, stored = norms(spec, f)
+        return 1 / 1.05 <= folded / stored <= 1.05
+
+    def dmax(a, b, key):
+        return max(float((x[key] - y[key]).abs().max())
+                   for x, y in zip(a["layers"], b["layers"]) if key in x)
+
+    out = {"max_abs_err": 0.0}
+    for drop in (zero, spec_r.cfg.dropout):
+        spec = dataclasses.replace(
+            spec_r, cfg=dataclasses.replace(spec_r.cfg, dropout=drop))
+        step = k6.build_fused_step(spec)
+        for n in (1, steps):
+            a = (fs, xs[:n], ys[:n], ws[:n], seeds[:n])
+            f1, l1, a1 = step.chain(*a)
+            torch.cuda.synchronize()
+            f2, l2, a2 = k6.fused_steps_plain(spec, *a)
+            (p1, s1), (p2, s2) = (ct.unpack_params(spec, f1),
+                                  ct.unpack_params(spec, f2))
+            ns = ws[:n].sum(1)
+            mean = lambda v: float((v * ns).sum() / ns.sum())  # noqa: E731
+            m = spec.n_layers
+            sc1, sc2 = f1["scales"][0], f2["scales"][0]
+            d = {"dw": dmax(p1, p2, "w"), "db": dmax(p1, p2, "b"),
+                 "dgamma": dmax(p1, p2, "gamma"),
+                 "dbeta": dmax(p1, p2, "beta"),
+                 "dmu": float((s1["layers"][0]["mean"]
+                               - s2["layers"][0]["mean"]).abs().max()),
+                 "dmu_any_layer": dmax(s1, s2, "mean"),
+                 "dloss": abs(mean(l1) - mean(l2)),
+                 "dacc": abs(mean(a1) - mean(a2)),
+                 "dloss_any_step": float((l1 - l2).abs().max()),
+                 "dacc_any_step": float((a1 - a2).abs().max()),
+                 "dscales_rel": float(((sc1 - sc2) / sc2).abs().max()),
+                 "du": float((f1["u"] - f2["u"]).abs().max()),
+                 "moments_rel": moment_err(f1, f2),
+                 "count": (int(f1["count"][0]), int(f2["count"][0]))}
+            folded, stored = norms(spec, f1)
+            bars = ct.parity_bars(n)
+            tol = bars["param"]
+            what = f"{n} steps dropout {drop[0]}"
+            print(f"kernel K6 digit {what}: "
+                  + ", ".join(f"{k} {v:.3e}" if isinstance(v, float)
+                              else f"{k} {v}" for k, v in d.items())
+                  + f"; scales {[round(float(v), 5) for v in sc1[:m]]}; "
+                  f"product norm folded {folded:.5f} / of w16 {stored:.5f} "
+                  f"(rho {rho}); loss first/last {float(l1[0]):.4f}/"
+                  f"{float(l1[-1]):.4f}; bars {bars}, moments {MOMENT_BAR}, "
+                  f"scales 5e-3 rel, u 2e-2", flush=True)
+            check(d["dw"] < tol and d["db"] < tol and d["dgamma"] < tol
+                  and d["dbeta"] < tol, f"K6 params off the twin ({what})")
+            check(d["dmu"] < bars["bn_mean"],
+                  f"K6 BN means off the twin ({what})")
+            check(d["dloss"] < bars["loss"] and d["dacc"] < bars["acc"],
+                  f"K6 loss/accuracy off the twin ({what})")
+            check(d["moments_rel"] < MOMENT_BAR,
+                  f"K6 Adam moments off the twin ({what})")
+            # sigma comes from bf16 copies that differ by up to the parameter
+            # bar in a few entries: K2 holds sigma to 5e-3 against its twin,
+            # and a factor is its sixth root; u turns with those entries
+            check(d["dscales_rel"] < 5e-3 and d["du"] < 2e-2,
+                  f"K6 scales or u off the twin ({what})")
+            check(d["count"] == (n, n), "K6 Adam count")
+            check(bool((sc1[:m] != 1).all()) and bool((sc1[m:] == 1).all()),
+                  "K6 scales after a constrained step")
+            check(fold_ok(spec, f1), f"K6 folded masters are not its w16 "
+                  f"({what}): {folded} vs {stored}")
+            if n == steps:
+                check(rho / 1.5 <= folded <= 1.5 * rho,
+                      f"K6 product norm {folded} outside [rho/1.5, 1.5 rho]")
+            out["max_abs_err"] = max(out["max_abs_err"], d["dw"], d["db"])
+            out[what] = d
+        if drop != zero:
+            continue
+        # a planted double fold must fail the fold check (on the twin, where
+        # one operation can be swapped); an upper bound alone would pass it
+        bad = k6.fused_steps_plain(spec, fs, xs[:1], ys[:1], ws[:1],
+                                   seeds[:1], ops=DoubleFoldOps(spec))[0]
+        b_folded, b_stored = norms(spec, bad)
+        print(f"kernel K6 planted double fold after 1 step: product norm "
+              f"folded {b_folded:.3e} vs of w16 {b_stored:.3e}: fold check "
+              f"{'passes' if fold_ok(spec, bad) else 'fails'}", flush=True)
+        check(not fold_ok(spec, bad), "the fold check passes a double fold")
+        out["double_fold"] = {"folded": b_folded, "stored": b_stored}
+        # an unconstrained step from a state with scales != 1 folds them at
+        # its Adam load and leaves scales = 1
+        free = dataclasses.replace(spec, rho=None)
+        f_free, _, _ = k6.build_fused_step(free)(f1, xs[0], ys[0], ws[0],
+                                                 seeds[0])
+        t_free, _, _ = k6.fused_step_plain(free, f1, xs[0], ys[0], ws[0],
+                                           seeds[0])
+        dfree = max(float((x - y).abs().max()) for x, y in
+                    zip(f_free["masters"], t_free["masters"]))
+        check(bool((f_free["scales"] == 1).all()),
+              "K6 scales after an unconstrained step")
+        check(torch.equal(f_free["u"], f1["u"]), "K6 u must pass through")
+        check(dfree < ct.parity_bars(1)["param"],
+              f"K6 unconstrained step off the twin by {dfree}")
+        check(int(f_free["count"][0]) == steps + 1, "K6 count")
+        print(f"kernel K6 unconstrained step from scales != 1: scales all 1, "
+              f"u unchanged, masters vs twin {dfree:.3e}", flush=True)
+
+    # ---- the main path: the epoch as a chain of K6 steps, then K3 ----------
+    spec = dataclasses.replace(
+        spec_r, cfg=dataclasses.replace(spec_r.cfg, dropout=zero))
+    gens = lambda: (torch.Generator(device=dev).manual_seed(SEED + 34),  # noqa: E731
+                    torch.Generator(device=dev).manual_seed(SEED + 35))
+    data_pad = ct.pad_features(spec, data)
+    ep_k6 = ct.build_fused_epoch_fn(spec, scan_steps=True)
+    ep_k3 = ct.build_fused_epoch_fn(spec)
+    ep_k6(fs, data_pad, labels, *gens(), n_rows)  # captures the graph
+    torch.cuda.synchronize()
+    k6.build_fused_step.launches = 0  # the main path starts here
+    f6, loss6, acc6 = ep_k6(fs, data_pad, labels, *gens(), n_rows)
+    torch.cuda.synchronize()
+    launches = k6.build_fused_step.launches  # ... and ends here
+    f3, loss3, acc3 = ep_k3(fs, data_pad, labels, *gens(), n_rows)
+    (p6, s6), (p3, s3) = ct.unpack_params(spec, f6), ct.unpack_params(spec, f3)
+    gap = {"dw": dmax(p6, p3, "w"), "db": dmax(p6, p3, "b"),
+           "dmu": float((s6["layers"][0]["mean"]
+                         - s3["layers"][0]["mean"]).abs().max()),
+           "dloss": abs(float(loss6) - float(loss3)),
+           "dacc": abs(float(acc6) - float(acc3)),
+           "moments_rel": moment_err(f6, f3)}
+    zero_gap = gap["dw"] == 0.0 and gap["db"] == 0.0 and gap["dloss"] == 0.0
+    bars = ct.parity_bars(steps)
+    print(f"kernel K6 scan_steps epoch vs K3 epoch ({steps} steps, same "
+          f"state, shuffle and seeds): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gap.items())
+          + f"; bit-equal: {'yes' if zero_gap else 'no'}; K6 launches "
+          f"{launches}; bars {bars}", flush=True)
+    check(launches == steps, f"K6 launched {launches} times in {steps} steps")
+    check(gap["dw"] < bars["param"] and gap["db"] < bars["param"]
+          and gap["dmu"] < bars["bn_mean"] and gap["dloss"] < bars["loss"]
+          and gap["dacc"] < bars["acc"] and gap["moments_rel"] < MOMENT_BAR,
+          "the scan_steps epoch is off the K3 epoch")
+    n6 = norms(spec, f6)[0]
+    f63, _, _ = ep_k3(f6, data_pad, labels, *gens(), n_rows)  # K6 -> K3
+    n63 = norms(spec, f63)[0]
+    print(f"kernel K6 product norm after the K6 epoch {n6:.5f}, after a K3 "
+          f"epoch on top {n63:.5f} (rho {rho}, held in [rho/1.5, 1.5 rho])",
+          flush=True)
+    check(rho / 1.5 <= n6 <= 1.5 * rho and rho / 1.5 <= n63 <= 1.5 * rho,
+          f"product norm {n6} / {n63} outside [rho/1.5, 1.5 rho]")
+    check(bool((f63["scales"] == 1).all()) and int(f63["count"][0])
+          == 2 * steps, "K6 -> K3 hand-over state")
+    out.update(launches=launches, vs_k3=dict(gap, bit_equal=zero_gap),
+               norm_k6=n6, norm_k6_k3=n63,
+               timing_args=(spec_r, (fs, xs, ys, ws, seeds), data_pad,
+                            labels, n_rows))
+    return out
+
+
+# -- multi-run phase --------------------------------------------------------------
+
+def multi_run_phase(dev, split, seeds=(0, 1, 2, 3), epochs=6, batch=512,
+                    rhos=(0.05, 0.1, 0.2), sweep_epochs=2, es_epochs=10):
+    """`fit_multi_run` at the full digit width: the fused backend with
+    `seeds` against solo `Trainer.fit`s, runs that stop early and stay
+    frozen, and a rho sweep on the plain backend."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.models.mlp import (
+        MLPConfig, dense_kernels, init_mlp)
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
+    from asr_using_robust_nn_tpu_torch.train import multi_run as mr
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, _tree_leaves, _tree_map)
+
+    (tr_x, tr_y), (va_x, va_y) = split["train"], split["val"]
+    cfg = MLPConfig.digit_constrained()
+    rho = 0.1
+    con = make_simple_norm_constraint(rho)
+    on_card = dev.type == "cuda"
+    kw = {} if on_card else {"device": dev}  # the card is the default
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tcfg = TrainConfig(batch_size=batch, epochs=epochs, patience=epochs,
+                       device_resident=True, epoch_backend="fused")
+    out = {}
+
+    p0, _ = init_mlp(cfg, torch.Generator(device=dev).manual_seed(SEED + 71),
+                     device=dev)
+
+    def solo(seed, t=tcfg):
+        t = Trainer(cfg, dataclasses.replace(t, seed=seed),
+                    constraint=con.apply, constraint_state=con.init(p0), **kw)
+        return t.fit(tr_x, tr_y, va_x, va_y)
+
+    def worst(res, r, ref):
+        """Largest gap of run r's histories and best parameters to a solo
+        fit's."""
+        gaps = [float(np.abs(res["history"][k][:, r].astype(np.float64)
+                             - np.asarray(ref["history"][k])).max())
+                for k in ("loss", "acc", "val_loss", "val_acc")]
+        run_best = _tree_map(lambda t: t[r], res["best_params"])
+        gaps += [float((a - b).abs().max()) for a, b in zip(
+            _tree_leaves(run_best), _tree_leaves(ref["best_params"]))]
+        return max(gaps)
+
+    ct.build_fused_epoch_call.launches = 0
+    t0 = time.perf_counter()
+    res = mr.fit_multi_run(cfg, tcfg, tr_x, tr_y, va_x, va_y, list(seeds),
+                           constraint=con.apply, constraint_init=con.init,
+                           epoch_backend="fused", **kw)
+    sync()
+    sec = time.perf_counter() - t0
+    k3 = ct.build_fused_epoch_call.launches
+    refs = [solo(s) for s in seeds]
+    again = solo(seeds[0])
+    repro = all(torch.equal(a, b) for a, b in zip(
+        _tree_leaves(refs[0]["best_params"]),
+        _tree_leaves(again["best_params"]))) and \
+        refs[0]["history"] == again["history"]
+    # a solo fit replays the same captured kernels on the same inputs, and no
+    # kernel of the graph uses atomics: where two solo fits are bit-equal the
+    # multi-run must equal them bit for bit, else it is held to the bar two
+    # epochs of this length are held to
+    bar = 0.0 if repro else ct.parity_bars(
+        epochs * -(-len(tr_x) // batch))["param"]
+    gaps = [worst(res, r, refs[r]) for r in range(len(seeds))]
+    print(f"multi-run fused: {len(seeds)} seeds x {epochs} epochs in "
+          f"{sec:.2f} s ({sec / len(seeds) / epochs * 1e3:.1f} ms per run per "
+          f"epoch, eval and snapshots included), K3 replays {k3}; final loss "
+          f"{[round(float(v), 4) for v in res['history']['loss'][-1]]}, "
+          f"val_loss {[round(float(v), 4) for v in res['best_val_loss']]}; "
+          f"two solo fits bit-equal: {'yes' if repro else 'no'}; worst gap of "
+          f"each run to its solo Trainer.fit {gaps} (bar {bar})", flush=True)
+    if on_card:
+        check(k3 == len(seeds) * epochs, f"K3 replayed {k3} times for "
+              f"{len(seeds)} runs x {epochs} epochs")
+    check(all(g <= bar for g in gaps), "a run differs from its solo fit")
+    check(res["history"]["val_loss"].shape == (epochs, len(seeds))
+          and (res["epochs_run"] == epochs).all(), "multi-run history shape")
+    out.update(fit_s=sec, k3_launches=k3, bit_reproducible=repro,
+               max_gap=max(gaps))
+
+    # frozen runs: with patience 2 the runs stop at different epochs (while
+    # BN's running variance settles, eval-mode val_loss wanders); a stopped
+    # run's val rows repeat bit for bit while the others go on, and it ends
+    # where its solo fit ended
+    t_es = dataclasses.replace(tcfg, epochs=es_epochs, patience=2)
+    res_es = mr.fit_multi_run(cfg, t_es, tr_x, tr_y, va_x, va_y, list(seeds),
+                              constraint=con.apply, constraint_init=con.init,
+                              epoch_backend="fused", **kw)
+    er, vh = res_es["epochs_run"], res_es["history"]["val_loss"]
+    for r, seed in enumerate(seeds):
+        tail = vh[int(er[r]) - 1:, r]
+        check(bool(np.all(tail == tail[0])), f"stopped run {r}'s val rows "
+              f"moved")
+        ref = solo(seed, t_es)
+        same = all(torch.equal(a[r], b) for a, b in zip(
+            _tree_leaves(res_es["params"]), _tree_leaves(ref["params"])))
+        check(ref["epochs_run"] == er[r] and (same or not repro),
+              f"run {r} did not end where its solo fit ended")
+    if on_card:
+        check(len(set(er.tolist())) > 1 and len(vh) == er.max() > er.min(),
+              f"no run stopped before another: epochs run {er.tolist()}")
+    # ... and the mask itself, on the packed states at full width
+    spec = ct.FusedStepSpec(cfg=cfg, batch=batch, rho=rho, pi_iters=16)
+    fstates, kp, kd = mr.init_multi_run_fused_state(spec, list(seeds), **kw)
+    d_tr, n_true = pad_to_multiple(tr_x, batch)
+    l_tr, _ = pad_to_multiple(tr_y, batch)
+    data = ct.pad_features(spec, torch.from_numpy(d_tr).to(dev))
+    lab = torch.from_numpy(l_tr).to(dev)
+    act = np.array([r != 1 for r in range(len(seeds))])
+    mfn = mr.build_multi_run_fused_epoch_fn(spec)
+    fs2, ml, _ = mfn(fstates, data, lab, mr.fold_runs(kp, 0, dev),
+                     mr.fold_runs(kd, 0, dev), act, n_true)
+    frozen = all(torch.equal(a[1], b[1]) for a, b in zip(
+        _tree_leaves(fstates), _tree_leaves(fs2)))
+    moved = not torch.equal(fstates["masters"][0][0], fs2["masters"][0][0])
+    print(f"multi-run freeze: epochs run with patience 2 {er.tolist()} of "
+          f"{es_epochs}, each run's final state bit-equal to its solo fit's; "
+          f"masked run bit-equal: {frozen}, its loss "
+          f"{float(ml[1])}; active runs moved: {moved}", flush=True)
+    check(frozen and moved and bool(torch.isnan(ml[1])),
+          "the active mask does not freeze a run exactly")
+
+    # a rho sweep on the plain backend: each run lands at its own rho
+    t_pl = dataclasses.replace(tcfg, epochs=sweep_epochs,
+                               patience=sweep_epochs, epoch_backend="plain")
+    t0 = time.perf_counter()
+    res_pl = mr.fit_multi_run(
+        cfg, t_pl, tr_x, tr_y, va_x, va_y, [seeds[0]] * len(rhos),
+        constraint_factory=make_simple_norm_constraint, rhos=list(rhos), **kw)
+    sync()
+    sec_pl = time.perf_counter() - t0
+    sig = [product_norm([k[r].cpu().numpy()
+                         for k in dense_kernels(res_pl["params"])])
+           for r in range(len(rhos))]
+    print(f"multi-run plain rho sweep {list(rhos)} x {sweep_epochs} epochs in "
+          f"{sec_pl:.2f} s ({sec_pl / len(rhos) / sweep_epochs * 1e3:.1f} ms "
+          f"per run per epoch): product norms {[round(v, 5) for v in sig]} "
+          f"(each held in [rho/1.2, 1.2 rho])", flush=True)
+    check(all(r / 1.2 <= v <= 1.2 * r for r, v in zip(rhos, sig)),
+          f"rho sweep norms {sig} off {rhos}")
+    out.update(plain_fit_s=sec_pl, sweep_norms=sig,
+               epochs_run_patience2=er.tolist(),
+               timing_args=(spec, fstates, data, lab, kp, kd, n_true))
+    return out
+
+
 # -- training phase -------------------------------------------------------------
 
 def synth_class_waves(labels, seed, device, width=22050, sr=22050):
@@ -1423,6 +1778,106 @@ def train_timing_phase(dev, k3_args, reps=5):
     return out
 
 
+def step_timing_phase(dev, k6_args, mrun_args, k3_epoch_ms, reps=5):
+    """K6 per step (graph replay alone, the whole `step` call, a chain of 33)
+    against its twin, K3's time per step and the plain autograd
+    `train_step`; the `scan_steps` epoch against the K3 epoch; the multi-run
+    epoch per run on both backends; K6's bound from this run's tensors."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_step as k6
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.train import multi_run as mr
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, adam_optimizer)
+
+    card = card_line()
+    spec, (fs, xs, ys, ws, seeds), data_pad, labels, n_rows = k6_args
+    steps = xs.shape[0]
+    step = k6.build_fused_step(spec)
+    one = (fs, xs[0], ys[0], ws[0], seeds[0])
+    call_ms, twin_ms, t = paired_ms(
+        lambda: step(*one), lambda: k6.fused_step_plain(spec, *one), reps)
+    replay_ms = float("nan")  # a CPU rehearsal has no graph
+    if dev.type == "cuda":
+        graph = step.graphs[dev]
+        graph.load(fs)
+        replay_ms = time_ms(graph.graph.replay, 10 * reps)
+    chain = lambda: step.chain(fs, xs, ys, ws, seeds)  # noqa: E731
+    chain()
+    chain_ms = (time_ms(chain, reps) + time_ms(chain, reps)) / 2 / steps
+
+    ep_k6 = ct.build_fused_epoch_fn(spec, scan_steps=True)
+    ep_k3 = ct.build_fused_epoch_fn(spec)
+    gens = lambda: (torch.Generator(device=dev).manual_seed(SEED + 36),  # noqa: E731
+                    torch.Generator(device=dev).manual_seed(SEED + 37))
+    scan_ms, grid_ms, t_ep = paired_ms(
+        lambda: ep_k6(fs, data_pad, labels, *gens(), n_rows),
+        lambda: ep_k3(fs, data_pad, labels, *gens(), n_rows), reps)
+
+    # the plain autograd step of the same recipe (fp32 GEMMs, K2 projection)
+    con = make_simple_norm_constraint(spec.rho, n_iter=spec.pi_iters)
+    p0, s0 = init_mlp(spec.cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 38), device=dev)
+    tr = Trainer(spec.cfg, TrainConfig(batch_size=spec.batch),
+                 constraint=con.apply, constraint_state=con.init(p0),
+                 device=dev)
+    opt0, c0 = adam_optimizer(spec.lr).init(p0), con.init(p0)
+    x0 = xs[0][:, :spec.dims[0]].contiguous()
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    plain = lambda: tr.train_step(p0, s0, opt0, c0, x0, ys[0], dgen)  # noqa: E731
+    plain()
+    auto_ms = (time_ms(plain, reps) + time_ms(plain, reps)) / 2
+
+    n_bytes = 2 * tree_bytes(fs) + tree_bytes([xs[0], ys[0], ws[0]])
+    b_ms, b_by = bound_ms(n_bytes, {"bf16": step_flop(spec.batch)})
+    out = {"ms": call_ms, "plain_ms": twin_ms, "runs_ms": t,
+           "replay_ms": replay_ms, "chain_step_ms": chain_ms,
+           "k3_step_ms": k3_epoch_ms / steps, "train_step_ms": auto_ms,
+           "scan_epoch_ms": scan_ms, "k3_epoch_fn_ms": grid_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "state_mb": tree_bytes(fs) / 1e6,
+           "gflop": step_flop(spec.batch) / 1e9}
+    print(f"time K6 digit step (batch {spec.batch}, dropout "
+          f"{spec.cfg.dropout[0]}): graph replay {replay_ms:.3f} ms, whole "
+          f"step call {call_ms:.3f} ms (state copied in and cloned out), "
+          f"chain of {steps} {chain_ms:.3f} ms/step, twin {twin_ms:.3f} ms "
+          f"(runs p,k,k,p {[round(x, 3) for x in t]}); K3 {k3_epoch_ms:.3f} "
+          f"ms/epoch = {k3_epoch_ms / steps:.3f} ms/step; plain autograd "
+          f"train_step {auto_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
+          f"({n_bytes / 1e6:.1f} MB, {step_flop(spec.batch) / 1e9:.2f} "
+          f"GFLOP); no library call; card {card}", flush=True)
+    print(f"time epoch through build_fused_epoch_fn: scan_steps (K6) "
+          f"{scan_ms:.3f} ms, grid (K3) {grid_ms:.3f} ms (runs k3,k6,k6,k3 "
+          f"{[round(x, 3) for x in t_ep]}); card {card}", flush=True)
+
+    mspec, fstates, data, lab, kp, kd, n_true = mrun_args
+    n_runs = fstates["count"].shape[0]
+    fused = mr.build_multi_run_fused_epoch_fn(mspec)
+    run_fused = lambda: fused(  # noqa: E731
+        fstates, data, lab, mr.fold_runs(kp, 0, dev),
+        mr.fold_runs(kd, 0, dev), None, n_true)
+    run_fused()
+    f_ms = (time_ms(run_fused, reps) + time_ms(run_fused, reps)) / 2 / n_runs
+    opt = adam_optimizer(mspec.lr)
+    st = mr.init_multi_run_state(mspec.cfg, opt, list(range(n_runs)),
+                                 con.init, device=dev)
+    plain_mr = mr.build_multi_run_epoch_fn(mspec.cfg, opt, con.apply,
+                                           batch_size=mspec.batch)
+    x_plain = data[:, :mspec.dims[0]].contiguous()
+    run_plain = lambda: plain_mr(  # noqa: E731
+        *st[:4], x_plain, lab, mr.fold_runs(st[4], 0, dev),
+        mr.fold_runs(st[5], 0, dev), None, None, n_true)
+    run_plain()
+    p_ms = time_ms(run_plain, 2) / n_runs
+    out.update(multi_run_fused_ms=f_ms, multi_run_plain_ms=p_ms)
+    print(f"time multi-run epoch, {n_runs} runs, ms per run per epoch: fused "
+          f"(K3, state sliced in and copied back) {f_ms:.3f}, plain (loop of "
+          f"autograd epochs) {p_ms:.3f}; card {card}", flush=True)
+    return out
+
+
 # -- bounds, library yardsticks, K4/K5 timing -----------------------------------
 
 # NVIDIA H100 SXM data sheet, dense rates: the least time for a piece of work
@@ -1622,7 +2077,7 @@ def build_all():
         build_log, load_library)
 
     names = ("dft_power_mel", "product_power_iter", "fused_epoch",
-             "int8_dft_power_mel", "dft_power_mel_x3")
+             "int8_dft_power_mel", "dft_power_mel_x3", "fused_step")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(load_library, names))
@@ -1641,7 +2096,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from asr_using_robust_nn_tpu_torch.ops import (
-        cuda_mfcc_int8, cuda_mfcc_x3, cuda_spectral, cuda_train)
+        cuda_mfcc_int8, cuda_mfcc_x3, cuda_spectral, cuda_step, cuda_train)
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import KERNEL_SOURCE
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
@@ -1659,11 +2114,15 @@ def main() -> int:
     serve = serving_phase(dev)
     split = featurize_phase(dev)
     k3 = k3_phase(dev, split)
+    k3_args = k3.pop("timing_args")
+    k6 = k6_phase(dev, k3_args)
     train = train_phase(dev, split)
+    mrun = multi_run_phase(dev, split)
     prep = prepare_phase(dev)
     timing = timing_phase(dev, serve.pop("engine"))
-    k3_args = k3.pop("timing_args")
     ttime = train_timing_phase(dev, k3_args)
+    stime = step_timing_phase(dev, k6.pop("timing_args"),
+                              mrun.pop("timing_args"), ttime["k3"]["ms"])
     ftime = frontend_timing_phase(dev, prep)
     lib = library_phase(dev, k3_args)
     k4t, k5t = ftime["K4_1024"], ftime["K5_1024"]
@@ -1757,6 +2216,26 @@ def main() -> int:
         "k1_ms": k5t["k1_ms"], "fp32_chain_ms": k5t["fp32_chain_ms"],
         "shape": "speaker bucket 1024 (103424 frames x 441 x 221)",
         "tflops_bf16": k5t["tops"],
+    }, {
+        "name": "fused_step", "route": "cuda",
+        "source": cuda_step.KERNEL_SOURCE, "replaces": cuda_step.REPLACES,
+        "launches": k6["launches"],
+        "max_abs_err": k6["max_abs_err"],
+        "tolerance": "vs twin after 1 and 33 steps: params (scales folded) < "
+                     "lr*max(8, 2*steps), layer-0 BN mean < 6e-3, mean "
+                     f"loss/acc < 3e-2, Adam moments rel < {MOMENT_BAR}, "
+                     "scales rel < 5e-3, u < 2e-2; product norm in [rho/1.5, "
+                     "1.5 rho]; folded masters within 5 % of the stored w16",
+        "ms": stime["ms"], "plain_ms": stime["plain_ms"],
+        "bound_ms": stime["bound_ms"], "bound_by": stime["bound_by"],
+        "library_ms": None,
+        "shape": "digit step: 512 rows, 896..128 padded, rho 0.1, 16 rounds",
+        "replay_ms": stime["replay_ms"],
+        "chain_step_ms": stime["chain_step_ms"],
+        "k3_step_ms": stime["k3_step_ms"],
+        "train_step_ms": stime["train_step_ms"],
+        "scan_epoch_ms": stime["scan_epoch_ms"],
+        "k3_epoch_fn_ms": stime["k3_epoch_fn_ms"],
     }]
     print(json.dumps({"engine_latency_ms": {
         k: {m: v[m] for m in ("p50_ms", "p95_ms")}
@@ -1766,7 +2245,11 @@ def main() -> int:
         "max_probs_err": serve["max_probs_err"],
         "train": train,
         "prepare": {**prep, **ftime["prepare"]},
-        "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"}}))
+        "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"},
+        "k6_vs_twin": {k: v for k, v in k6.items() if k != "max_abs_err"},
+        "multi_run": {**mrun, "fused_ms_per_run_epoch":
+                      stime["multi_run_fused_ms"],
+                      "plain_ms_per_run_epoch": stime["multi_run_plain_ms"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
