@@ -1,4 +1,9 @@
-// K1 on Hopper: in-kernel framing -> windowed rDFT -> |.|^2 -> mel projection.
+// K1 on Hopper, dense body: in-kernel framing -> windowed rDFT as a dense
+// product -> |.|^2 -> mel projection, for every n_fft the FFT body
+// (csrc/fft_power_mel.cu) does not take: any n_fft that is not a power of
+// two in [32, 4096]. Of the presets that is the speaker one (n_fft 441 =
+// 21 x 21, hop 220, 221 bins); ops/cuda_mfcc.py::kernel_body picks the body
+// from the config alone.
 //
 // Replaces asr_using_robust_nn_tpu/ops/pallas_mfcc.py::_dft_power_mel_kernel,
 // the Pallas TPU kernel behind mel_power_pallas / mfcc_pallas_batch. It
@@ -8,22 +13,16 @@
 // the fp32 mel power (B*T, 128), frame t of utterance b being
 // ypad[b, t*hop : t*hop + n_fft].
 //
-// What bounds it on an H100: arithmetic. One digit utterance (n_fft 2048,
-// 1025 bins, 44 frames) costs 44*2048*1025*4 + 44*1025*128*2 ~= 0.38 GFLOP,
-// so a 1024-row serving bucket is ~390 GFLOP against ~100 MB of waveform,
-// constant and output traffic: thousands of FLOP per byte, far above the
-// ridge point. Tensor cores are out (one TF32 or bf16 pass misses the 5e-4
-// MFCC bar), so the ceiling is the CUDA cores: ~67 TFLOP/s fp32 and ~34
-// TFLOP/s fp64 on the H100 SXM.
-//
-// Precision. The rDFT products are fp32 x fp32, exact in fp64, and are
-// summed in fp64; the power is rounded to fp32 once, and the mel projection
-// (non-negative terms, no cancellation) runs in fp32 FMA. Summing the rDFT
-// in fp32 is not enough: on a pure tone (the golden chirp) bins ~80 dB below
-// the peak are still inside the top_db window, and an fp32-accumulated rDFT
-// puts the MFCC ~4e-4 (digit) to ~6e-4 (speaker) from the f64 oracle, at or
-// over the 5e-4 bar; fp64 sums put it at ~2e-5 / ~8e-5. The price is the
-// fp64 FMA rate, half the fp32 one: >= ~12 ms per digit bucket at peak.
+// What bounds it on an H100: float64 FMAs on the CUDA cores. The rDFT
+// products are fp32 x fp32, exact in fp64, and are summed in fp64 (fp32
+// sums put the speaker MFCC ~6e-4 from the f64 oracle on the golden chirp,
+// over the 5e-4 bar; fp64 sums ~8e-5); the power is rounded to fp32 once
+// and the mel projection (non-negative terms) runs in fp32 FMA. A 1024-row
+// speaker bucket is 103 424 frames x 441 x 221 x 4 = 40 GFLOP of fp64, 1.2
+// ms at the 34 TFLOP/s peak. The digit preset's 378 GFLOP made this body
+// the serving path's largest cost, which is why that preset moved to the
+// FFT body; at 441 points the dense form costs 4x a two-stage 21 x 21
+// transform would, and stays until that form is written.
 //
 // What the design does about the bound:
 //  * Register tiling. A block of 256 threads owns 64 frame rows. Each thread
@@ -35,15 +34,12 @@
 //    the (rows x n_freq) power spectrogram never reaches device memory,
 //    which is what K1 exists for. The mel tile is thread-private and parked
 //    in shared memory between chunks, so the fp64 tiles get the registers.
-//  * Framing is address arithmetic on the waveform, so the 4x-expanded
+//  * Framing is address arithmetic on the waveform, so the expanded
 //    (B*T, n_fft) frame tensor is never written. Reads past n_fft, past the
 //    padded waveform or past the last row are zeros.
 //  * The wrapper zero-pads the constants to whole tiles once per (config,
 //    device); padded DFT rows and bins contribute exact zeros, so only the
 //    frame rows and the n_fft edge of the waveform need masking here.
-// Later work: fewer fp64 FMAs (fp32 partial sums over short runs, or a
-// 3xTF32 split on the tensor cores) once their error on the goldens is
-// measured, and cp.async double buffering of the staged tiles.
 
 #include <cuda_runtime.h>
 

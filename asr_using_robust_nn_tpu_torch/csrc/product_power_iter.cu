@@ -1,4 +1,5 @@
-// K2 on Hopper: power iteration for sigma = ||W_m^T ... W_1^T||_2.
+// K2 on Hopper: power iteration for sigma = ||W_m^T ... W_1^T||_2, the whole
+// iteration in one launch on one thread-block cluster.
 //
 // Replaces asr_using_robust_nn_tpu/ops/pallas_spectral.py::_pi_kernel (the
 // Pallas TPU kernel behind product_spectral_norm_pallas) and the projection
@@ -8,48 +9,241 @@
 // x / (||x|| + eps), and
 //   u = nrm(u0); repeat n_iter: v = nrm(P^T u), u = nrm(P v);
 //   v = nrm(P^T u); sigma = u . (P v); return (sigma, u)
-// with P^T x = W_1 ... W_m x and P x = W_m^T ... W_1^T x.
+// with P^T x = W_1 ... W_m x and P x = W_m^T ... W_1^T x. With rho > 0 the
+// simple_norm factors f_i = exp(log(rho / (s_i + eps)) / m), s_{i+1} = s_i
+// f_i, s_0 = sigma, then rescale the bf16 kernels and their fp32 masters.
 //
 // What bounds it on an H100: latency. The work is a chain of 2*m*(n_iter+1)
-// dependent matvecs (204 at the digit recipe, n_iter 16), each ~0.1-1.8 MB
-// of bf16 weights that stay in the 50 MB L2 for the whole chain, so the time
-// is launches and the grid-wide dependency between links, not bytes or FLOPs.
+// dependent matvecs (204 at the digit recipe, n_iter 16) over 3.2 MB of bf16
+// weights; one pass over them is 2 us of HBM time. As one launch per link
+// the chain cost 1.21 ms (3.4 us a link inside a CUDA graph): launch and
+// drain between dependent nodes, not bytes or FLOPs.
 //
-// Design: one launch per link on the caller's stream (the simple form; a
-// persistent cooperative kernel with grid syncs is later work). Each link
-// kernel stages its input vector in shared memory, normalizing it first when
-// it is the first link of a pass (every block computes the same norm with
-// the same reduction order, so all blocks agree bit for bit), and rounds it
-// to bf16 in bf16 mode. P^T links give a warp to each output row (coalesced
-// reads of one weight row); P links give a thread to each output column and
-// split the depth over the block's 8 warps. A one-block finishing kernel
-// forms u = nrm(u_raw), sigma = u . y and, for the simple_norm projection,
-// the per-layer factors, which a last kernel per layer applies to the bf16
-// kernels and their fp32 masters. No launch allocates or synchronizes, so the
-// whole chain can be captured into a CUDA graph.
+// What the design does about it: one launch on one thread-block cluster;
+// the links are separated by exchanges through distributed shared memory
+// instead of launches, and the weights never leave the cluster's shared
+// memory.
+//  * One cluster of C blocks (the wrapper launches 16, which needs the
+//    non-portable cluster size), 512 threads each. Every vector
+//    dimension d_i is cut into C contiguous slices of per_i = ceil(d_i / C)
+//    rounded up to a multiple of 4 entries; block c owns rows [c per_i,
+//    (c+1) per_i) of W_i (d_i x d_{i+1}) for BOTH directions, so one
+//    resident copy of its rows serves every link.
+//  * A P^T link (y = W_i x) is row dots against the block's full copy of x:
+//    a warp takes up to four owned rows at a time (one read of x, four
+//    independent sums) and sends its y values, already rounded, into every
+//    block's copy of the vector. A P link (y = W_i^T x) needs only the
+//    block's own slice of x: it forms its partial of every output column
+//    from its rows and sends each column segment's partial into the inbox
+//    of the block that owns that slice of d_{i+1}; the owner adds the C
+//    partials in rank order, which leaves it exactly the slice the next P
+//    link reads. So every link costs one exchange; a norm costs one more:
+//    each block sends its partial sum of squares to all, and all add the C
+//    partials in rank order, so all hold the same bits. 2m + 1 exchanges a
+//    round, 221 for the digit recipe.
+//  * An exchange is st.async stores counted by a transaction barrier in the
+//    receiving block (see `Exchange` below), not a cluster barrier: a
+//    cluster.sync() after remote stores makes all 512 threads of all blocks
+//    meet, a transaction barrier only makes a block wait for its own data.
+//    On an H100 the digit chain took 0.417 ms with cluster barriers and
+//    0.369 ms with these exchanges (chip_smoke.py's launch time).
+//  * Where a layer's width and its owner slices are multiples of 4, weights
+//    move as 8-byte (bf16) or 16-byte (fp32) words and vector entries as
+//    16-byte words, locally and between blocks; any other width takes the
+//    one-entry path.
+//  * Residency is decided per layer on the host (ops/cuda_spectral.py::
+//    pi_plan) from the widths: a layer whose widest slice still fits beside
+//    the vectors in the block's 227 KB stays in shared memory for all passes
+//    (at C = 16 the whole digit stack: 205 KB a block); any other layer is
+//    read from global memory (L2) on every pass. Widths up to 8192.
+//  * The finish (sigma, the factors) and the rescale of kernels and masters
+//    run in the same launch after the last exchange, spread over the
+//    cluster's threads (19 MB of traffic in ~0.02 ms).
+//  * No atomics on data, fixed partition, fixed summation orders: two
+//    launches on the same inputs give the same bits, so CUDA-graph replays
+//    stay reproducible.
+//  * It is an ordinary kernel node (cudaLaunchKernelEx with a cluster
+//    dimension), so it is captured into the fused epoch's and the fused
+//    step's graphs. Attributes (227 KB of dynamic shared memory, the
+//    non-portable cluster size) are set in asr_pi_preload, before a capture.
+// No block leaves while another may still send into its shared memory: in
+// the last exchange every block waits for every block's token and data, and
+// nothing is sent after it.
+//
+// What is left: a round of 13 exchanges takes ~22 us at the digit recipe,
+// ~1.7 us a link, of which the exchange itself is under half; the rest is
+// the two big layers' matvecs and each link's chain of dependent
+// shared-memory round trips, which a 128 x 128 layer pays too. Next: bulk
+// copies (one message per block instead of one per 16 bytes).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kColsP = 64;          // output columns per block of a P link
-constexpr int kMaxDim = 8192;       // a staged vector fits 48 KB of smem
+constexpr int kMaxLayers = 16;
+constexpr int kMaxDim = 8192;
+constexpr int kMaxCluster = 16;
+constexpr int kSmemMax = 232448;  // shared memory one block may use
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+struct PiArgs {
+  const void* w[kMaxLayers];
+  float* master[kMaxLayers];
+  int dims[kMaxLayers + 1];
+  int per[kMaxLayers + 1];   // slice length of dimension i per block
+  int res_off[kMaxLayers];   // byte offset of the resident slice, -1: global
+  int vec[kMaxLayers];       // rows may be read four entries at a time
+  int m, n_iter, cluster;
+  int dmax_e, dm_e, segmax;  // max dims and dims[m] rounded up to 4; max(per)
+  float eps, rho, inv_m;
+  const float* u_in;
+  float* u_out;
+  float* sigma;
+};
 
-__device__ __forceinline__ float round_bf16(float x) {
+constexpr int kPartFloats = 4 * kThreads;  // P-link partials of the row groups
+constexpr int kPlanFloats = 80;            // per-dimension lo, hi, ranks, 1/per
+
+// floats of shared memory ahead of the resident slices
+__host__ __device__ inline int vector_floats(int dmax_e, int dm_e, int segmax,
+                                             int cluster) {
+  return 2 * dmax_e + dm_e + segmax + 2 * cluster * segmax + 4 * cluster +
+         kPartFloats + 32 + kPlanFloats;
+}
+
+// VW consecutive weights as floats: one 8- or 16-byte load when VW is 4.
+template <typename T, int VW>
+struct Load;
+template <>
+struct Load<bf16, 4> {
+  static __device__ __forceinline__ void at(const bf16* p, float* v) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  }
+};
+template <>
+struct Load<float, 4> {
+  static __device__ __forceinline__ void at(const float* p, float* v) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  }
+};
+template <>
+struct Load<bf16, 1> {
+  static __device__ __forceinline__ void at(const bf16* p, float* v) {
+    v[0] = __bfloat162float(*p);
+  }
+};
+template <>
+struct Load<float, 1> {
+  static __device__ __forceinline__ void at(const float* p, float* v) {
+    v[0] = *p;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float cast_link(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float cast_link<bf16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Sum over the block; every thread gets the total. `red` holds kWarps floats.
+// -- the exchange between blocks --------------------------------------------
+// Data moves between blocks by st.async: a store into another block's shared
+// memory that, on arrival, counts its bytes down on a transaction barrier
+// (mbarrier) in that block. A block posts the bytes it expects for an
+// exchange, does its own sends, and waits on its own barrier; there is no
+// cluster-wide barrier and no fence. Every block also sends every block a
+// 4-byte token when it enters an exchange, so a block finishes exchange e
+// only after all blocks have finished e - 1: no block runs more than one
+// exchange ahead of another, also not of one that expects no data. That is
+// what lets two barriers (and two copies of each receive buffer) alternate,
+// exchange by exchange.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the address of `p` (in this block's shared memory) in block `rank`
+__device__ __forceinline__ uint32_t remote_u32(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void send1(float* dst, uint64_t* bar, int rank,
+                                      float v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+      :: "r"(remote_u32(dst, rank)), "r"(__float_as_uint(v)),
+         "r"(remote_u32(bar, rank)) : "memory");
+}
+
+__device__ __forceinline__ void send4(float* dst, uint64_t* bar, int rank,
+                                      float a, float b, float c, float d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      :: "r"(remote_u32(dst, rank)), "r"(__float_as_uint(a)),
+         "r"(__float_as_uint(b)), "r"(__float_as_uint(c)),
+         "r"(__float_as_uint(d)), "r"(remote_u32(bar, rank)) : "memory");
+}
+
+// One block's side of the exchanges, in order. expect(bytes) is called by
+// every thread before the block's sends of an exchange (thread 0 posts the
+// data bytes and the tokens it expects; the first `cluster` threads send
+// this block's tokens), wait() by every thread after them; wait() ends with
+// a block barrier, so no thread is an exchange behind another.
+struct Exchange {
+  uint64_t* bars;  // [2]
+  float* tokens;   // [cluster]
+  int cluster, rank;
+  int e = 0;
+  __device__ __forceinline__ uint64_t* bar() const { return bars + (e & 1); }
+  __device__ __forceinline__ void expect(int bytes) const {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(smem_u32(bar())), "r"(bytes + 4 * cluster)
+                   : "memory");
+    }
+    if (threadIdx.x < cluster) {
+      send1(tokens + rank, bar(), threadIdx.x, 0.f);
+    }
+  }
+  __device__ __forceinline__ void wait() {
+    const uint32_t addr = smem_u32(bar()), parity = (e >> 1) & 1;
+    uint32_t done;
+    do {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    } while (!done);
+    ++e;
+    __syncthreads();
+  }
+};
+
+// Sum over the block in a fixed order; every thread gets the total.
 __device__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -63,235 +257,537 @@ __device__ float block_sum(float v, float* red) {
   return t;
 }
 
-// xs[0..len) = cast(normalize ? x / (||x|| + eps) : x), cast = bf16 rounding
-// when `to_bf16`. Ends with a barrier.
-__device__ void stage_vector(const float* __restrict__ x, int len,
-                             bool normalize, bool to_bf16, float eps,
-                             float* xs, float* red) {
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    const float v = x[i];
-    xs[i] = v;
-    ss += v * v;
-  }
-  float den = 1.f;
-  if (normalize) den = sqrtf(block_sum(ss, red)) + eps;
-  __syncthreads();
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    float v = xs[i];
-    if (normalize) v = v / den;
-    if (to_bf16) v = round_bf16(v);
-    xs[i] = v;
-  }
-  __syncthreads();
-}
-
-// P^T link: y[j] = sum_n W[j, n] * x~[n] for j < din; W is (din, dout).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pi_link_pt(const T* __restrict__ w, int din, int dout,
-           const float* __restrict__ x, float* __restrict__ y,
-           int normalize, int to_bf16, float eps) {
-  extern __shared__ float xs[];
-  __shared__ float red[kWarps];
-  stage_vector(x, dout, normalize, to_bf16, eps, xs, red);
+// The rows of a P^T link a block owns: y[r] = sum_n w[r, n] * x[n], a warp
+// on RW rows at a time (one load of x serves RW independent sums). Calls
+// emit(r0, acc, count) once per row group with every lane holding the sums.
+template <typename T, int VW, int RW, typename Emit>
+__device__ __forceinline__ void pt_rows(const T* w, const float* x, int nrows,
+                                        int len, Emit emit) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j = blockIdx.x * kWarps + warp;
-  if (j >= din) return;
-  const T* row = w + static_cast<int64_t>(j) * dout;
-  float acc = 0.f;
-  for (int n = lane; n < dout; n += 32) acc = fmaf(to_f(row[n]), xs[n], acc);
+  for (int r0 = warp * RW; r0 < nrows; r0 += kWarps * RW) {
+    float acc[RW];
+    const T* wr[RW];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) y[j] = acc;
+    for (int r = 0; r < RW; ++r) {
+      acc[r] = 0.f;  // rows past the slice repeat its last row, unused
+      wr[r] = w + static_cast<int64_t>(min(r0 + r, nrows - 1)) * len;
+    }
+#pragma unroll 2
+    for (int n = VW * lane; n < len; n += 32 * VW) {
+      float xv[VW];
+      Load<float, VW>::at(x + n, xv);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        float wv[VW];
+        Load<T, VW>::at(wr[r] + n, wv);
+#pragma unroll
+        for (int q = 0; q < VW; ++q) acc[r] = fmaf(wv[q], xv[q], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+      }
+    }
+    emit(r0, acc, min(RW, nrows - r0));
+  }
 }
 
-// P link: y[n] = sum_k x~[k] * W[k, n] for n < dout; W is (din, dout).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pi_link_p(const T* __restrict__ w, int din, int dout,
-          const float* __restrict__ x, float* __restrict__ y,
-          int normalize, int to_bf16, float eps) {
-  extern __shared__ float xs[];
-  __shared__ float red[kWarps];
-  __shared__ float part[kWarps][kColsP + 1];
-  stage_vector(x, din, normalize, to_bf16, eps, xs, red);
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const int c0 = blockIdx.x * kColsP + tx, c1 = c0 + 32;
-  float a0 = 0.f, a1 = 0.f;
-  for (int k = ty; k < din; k += kWarps) {
-    const T* row = w + static_cast<int64_t>(k) * dout;
-    const float xv = xs[k];
-    if (c0 < dout) a0 = fmaf(to_f(row[c0]), xv, a0);
-    if (c1 < dout) a1 = fmaf(to_f(row[c1]), xv, a1);
+template <typename T, int VW, typename Emit>
+__device__ __forceinline__ void pt_link(const T* w, const float* x, int nrows,
+                                        int len, Emit emit) {
+  if (nrows > 2 * kWarps) {
+    pt_rows<T, VW, 4>(w, x, nrows, len, emit);
+  } else if (nrows > kWarps) {
+    pt_rows<T, VW, 2>(w, x, nrows, len, emit);
+  } else {
+    pt_rows<T, VW, 1>(w, x, nrows, len, emit);
   }
-  part[ty][tx] = a0;
-  part[ty][tx + 32] = a1;
+}
+
+// A block's partials of a P link: for every column n < dout, sum over the
+// block's rows k of xown[k] * w[k, n], handed VW columns at a time to
+// publish(n, values). Column units are spread over the threads; when there
+// are fewer units than threads the rows are split over thread groups and
+// added in group order.
+template <typename T, int VW, typename Publish>
+__device__ __forceinline__ void p_link_partials(const T* wrows, int nrows,
+                                                int dout, const float* xown,
+                                                float* part, Publish publish) {
+  const int units = dout / VW;
+  const int tid = threadIdx.x;
+  if (units >= kThreads) {
+    for (int p = tid; p < units; p += kThreads) {
+      const T* col = wrows + p * VW;
+      float acc[VW];
+#pragma unroll
+      for (int q = 0; q < VW; ++q) acc[q] = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < nrows; ++k) {
+        const float xv = xown[k];
+        float wv[VW];
+        Load<T, VW>::at(col + static_cast<int64_t>(k) * dout, wv);
+#pragma unroll
+        for (int q = 0; q < VW; ++q) acc[q] = fmaf(wv[q], xv, acc[q]);
+      }
+      publish(p * VW, acc);
+    }
+    return;
+  }
+  const int groups = min(kThreads / units, nrows);
+  const int g = tid / units, p = tid - g * units;
+  if (g < groups) {
+    const T* col = wrows + p * VW;
+    float acc[VW];
+#pragma unroll
+    for (int q = 0; q < VW; ++q) acc[q] = 0.f;
+#pragma unroll 8
+    for (int k = g; k < nrows; k += groups) {
+      const float xv = xown[k];
+      float wv[VW];
+      Load<T, VW>::at(col + static_cast<int64_t>(k) * dout, wv);
+#pragma unroll
+      for (int q = 0; q < VW; ++q) acc[q] = fmaf(wv[q], xv, acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < VW; ++q) part[g * dout + p * VW + q] = acc[q];
+  }
   __syncthreads();
-  if (threadIdx.x < kColsP) {
-    float s = 0.f;
+  for (int u = tid; u < units; u += kThreads) {
+    float acc[VW];
 #pragma unroll
-    for (int t = 0; t < kWarps; ++t) s += part[t][threadIdx.x];
-    const int c = blockIdx.x * kColsP + threadIdx.x;
-    if (c < dout) y[c] = s;
+    for (int q = 0; q < VW; ++q) acc[q] = 0.f;
+    for (int t = 0; t < groups; ++t) {
+      float pv[VW];
+      Load<float, VW>::at(part + t * dout + u * VW, pv);
+#pragma unroll
+      for (int q = 0; q < VW; ++q) acc[q] += pv[q];
+    }
+    publish(u * VW, acc);
   }
 }
 
-// u = nrm(u_raw) -> u_out; sigma = u . y; with f != nullptr also the
-// simple_norm factors f_i = exp(log(rho / (s_i + eps)) * inv_m), s_{i+1} =
-// s_i * f_i, s_0 = sigma. One block; u_raw may alias u_out.
-__global__ void __launch_bounds__(kThreads)
-pi_finish(const float* u_raw, const float* __restrict__ y, int len, float eps,
-          float* u_out, float* __restrict__ sigma, float* __restrict__ f,
-          int m, float rho, float inv_m) {
-  extern __shared__ float xs[];
-  __shared__ float red[kWarps];
-  stage_vector(u_raw, len, true, false, eps, xs, red);
-  float d = 0.f;
-  for (int i = threadIdx.x; i < len; i += kThreads) d += xs[i] * y[i];
-  d = block_sum(d, red);
-  for (int i = threadIdx.x; i < len; i += kThreads) u_out[i] = xs[i];
-  if (threadIdx.x == 0) {
-    sigma[0] = d;
-    if (f != nullptr) {
-      float s = d;
-      for (int i = 0; i < m; ++i) {
-        const float fi = expf(logf(rho / (s + eps)) * inv_m);
-        f[i] = fi;
-        s = s * fi;
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+pi_cluster_kernel(const __grid_constant__ PiArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.cluster;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int m = a.m, dm = a.dims[m];
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xfull = reinterpret_cast<float*>(smem);  // [2][dmax_e]
+  float* ufull = xfull + 2 * a.dmax_e;            // [dm_e] nrm(u), unrounded
+  float* xown = ufull + a.dm_e;                   // [segmax]
+  float* inbox = xown + a.segmax;                 // [2][C][segmax]
+  float* ssq = inbox + 2 * C * a.segmax;          // [3][C], then C tokens
+  float* part = ssq + 4 * C;                      // [kPartFloats]
+  float* red = part + kPartFloats;                // [32]
+  // the block's slice [lo, hi) of every dimension, the ranks that own a
+  // slice of it, and 1 / per: computed once
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + 32);  // [2]
+  int* s_lo = reinterpret_cast<int*>(bars + 2);
+  int* s_hi = s_lo + kMaxLayers + 1;
+  int* s_ranks = s_hi + kMaxLayers + 1;
+  float* s_inv = reinterpret_cast<float*>(s_ranks + kMaxLayers + 1);
+  if (tid <= m) {
+    s_lo[tid] = min(rank * a.per[tid], a.dims[tid]);
+    s_hi[tid] = min((rank + 1) * a.per[tid], a.dims[tid]);
+    s_ranks[tid] = (a.dims[tid] + a.per[tid] - 1) / a.per[tid];
+    s_inv[tid] = 1.f / static_cast<float>(a.per[tid]);
+  }
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_u32(bars + b)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  Exchange ex{bars, ssq + 3 * C, C, rank};
+
+  // the block's rows of layer j: resident copy or global memory
+  auto rows_of = [&](int j) -> const T* {
+    if (a.res_off[j] >= 0) return reinterpret_cast<const T*>(smem + a.res_off[j]);
+    return static_cast<const T*>(a.w[j]) +
+           static_cast<int64_t>(s_lo[j]) * a.dims[j + 1];
+  };
+  // `n` partials of one value per rank, added in rank order
+  auto ordered = [&](const float* p, int stride, int n) -> float {
+    float total = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      if (c < n) total += p[c * stride];
+    }
+    return total;
+  };
+  // partial p of this block to slot `slot` of every block; then all add the
+  // partials of the `n` ranks that own a slice, in rank order
+  auto all_sum = [&](float p, int slot, int n) -> float {
+    ex.expect(4 * C);
+    if (tid < C) send1(ssq + slot * C + rank, ex.bar(), tid, p);
+    ex.wait();
+    return ordered(ssq + slot * C, 1, n);
+  };
+
+  // resident slices, and u = nrm(u0) in every block
+  for (int j = 0; j < m; ++j) {
+    if (a.res_off[j] < 0) continue;
+    const int64_t count =
+        static_cast<int64_t>(s_hi[j] - s_lo[j]) * a.dims[j + 1];
+    const T* src = static_cast<const T*>(a.w[j]) +
+                   static_cast<int64_t>(s_lo[j]) * a.dims[j + 1];
+    T* dst = reinterpret_cast<T*>(smem + a.res_off[j]);
+    const int64_t bytes = count * static_cast<int64_t>(sizeof(T));
+    if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && bytes % 16 == 0) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(src);
+      uint4* d4 = reinterpret_cast<uint4*>(dst);
+      for (int64_t i = tid; i < bytes / 16; i += kThreads) d4[i] = s4[i];
+    } else {
+      for (int64_t i = tid; i < count; i += kThreads) dst[i] = src[i];
+    }
+  }
+  {
+    float s = 0.f;
+    for (int n = tid; n < dm; n += kThreads) {
+      const float v = a.u_in[n];
+      ufull[n] = v;
+      s += v * v;
+    }
+    const float den = sqrtf(block_sum(s, red)) + a.eps;
+    for (int n = tid; n < dm; n += kThreads) {
+      const float v = ufull[n] / den;
+      ufull[n] = v;
+      xfull[n] = cast_link<T>(v);
+    }
+  }
+  // every block of the cluster runs, its barriers initialized, before any
+  // block sends to it
+  cluster.sync();
+
+  int xb = 0, ib = 0;
+  float sigma = 0.f;
+  for (int round = 0; round <= a.n_iter; ++round) {
+    // P^T chain: x (d_m, in every block) -> t = W_1 ... W_m x, slice by slice
+    for (int j = m - 1; j >= 0; --j) {
+      const int lo = s_lo[j], nrows = s_hi[j] - lo, len = a.dims[j + 1];
+      const T* w = rows_of(j);
+      const float* x = xfull + xb * a.dmax_e;
+      float* next = xfull + (xb ^ 1) * a.dmax_e + lo;
+      if (j > 0) ex.expect(4 * a.dims[j]);
+      // sums of `count` rows from r0 on: rounded and sent to every block's
+      // copy of the vector (four at a time where the group is whole), or,
+      // at the end of the chain, kept unrounded for the norm
+      auto emit = [&](int r0, const auto& acc, int count) {
+        constexpr int RW = sizeof(acc) / sizeof(acc[0]);
+        if (j == 0) {
+          if (lane == 0) {
+#pragma unroll
+            for (int r = 0; r < RW; ++r) {
+              if (r < count) xown[r0 + r] = acc[r];
+            }
+          }
+        } else if (lane < C) {
+          float* dst = next + r0;
+          if constexpr (RW == 4) {
+            if (count == 4) {
+              send4(dst, ex.bar(), lane, cast_link<T>(acc[0]),
+                    cast_link<T>(acc[1]), cast_link<T>(acc[2]),
+                    cast_link<T>(acc[3]));
+              return;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            if (r < count) send1(dst + r, ex.bar(), lane, cast_link<T>(acc[r]));
+          }
+        }
+      };
+      if (a.vec[j]) {
+        pt_link<T, 4>(w, x, nrows, len, emit);
+      } else {
+        pt_link<T, 1>(w, x, nrows, len, emit);
+      }
+      if (j > 0) {
+        ex.wait();
+        xb ^= 1;
+      }
+    }
+    {  // v = nrm(t): the block keeps its slice, rounded for the first P link
+      __syncthreads();
+      const int n0 = s_hi[0] - s_lo[0];
+      float s = 0.f;
+      for (int i = tid; i < n0; i += kThreads) s += xown[i] * xown[i];
+      s = block_sum(s, red);
+      const float den = sqrtf(all_sum(s, 0, s_ranks[0])) + a.eps;
+      for (int i = tid; i < n0; i += kThreads) xown[i] = cast_link<T>(xown[i] / den);
+      __syncthreads();
+    }
+    // P chain: x (d_0, sliced) -> W_m^T ... W_1^T x (d_m, sliced)
+    for (int j = 0; j < m; ++j) {
+      const int nrows = s_hi[j] - s_lo[j], dout = a.dims[j + 1];
+      const int per_out = a.per[j + 1];
+      const float inv_per = s_inv[j + 1];
+      float* box = inbox + (ib * C + rank) * a.segmax;
+      const int lo2 = s_lo[j + 1], n2 = s_hi[j + 1] - lo2;
+      const int senders = s_ranks[j];
+      ex.expect(4 * senders * n2);
+      // the owner of column n is n / per_out; (n + 0.5) / per_out is at
+      // least 0.5 / 8192 from an integer, far more than fp32 rounding moves
+      // it, so the product's truncation is that quotient
+      auto publish = [&](int n, const float* v) {
+        const int owner = __float2int_rz((n + 0.5f) * inv_per);
+        float* dst = box + (n - owner * per_out);
+        if (a.vec[j]) {  // per_out is a multiple of 4: one owner, aligned
+          send4(dst, ex.bar(), owner, v[0], v[1], v[2], v[3]);
+        } else {
+          send1(dst, ex.bar(), owner, v[0]);
+        }
+      };
+      if (nrows > 0) {
+        if (a.vec[j]) {
+          p_link_partials<T, 4>(rows_of(j), nrows, dout, xown, part, publish);
+        } else {
+          p_link_partials<T, 1>(rows_of(j), nrows, dout, xown, part, publish);
+        }
+      }
+      ex.wait();
+      const float* in = inbox + ib * C * a.segmax;
+      ib ^= 1;
+      if (j < m - 1) {
+        for (int i = tid; i < n2; i += kThreads) {
+          xown[i] = cast_link<T>(ordered(in + i, a.segmax, senders));
+        }
+        __syncthreads();
+      } else if (round < a.n_iter) {
+        // u = nrm(P v): slices to every block, then the norm
+        float* next = xfull + (xb ^ 1) * a.dmax_e;
+        float sq = 0.f;
+        ex.expect(4 * dm + 4 * C);
+        for (int i = tid; i < n2; i += kThreads) {
+          const float s = ordered(in + i, a.segmax, senders);
+          sq += s * s;
+          for (int c = 0; c < C; ++c) send1(next + lo2 + i, ex.bar(), c, s);
+        }
+        sq = block_sum(sq, red);
+        if (tid < C) send1(ssq + C + rank, ex.bar(), tid, sq);
+        ex.wait();
+        const float den = sqrtf(ordered(ssq + C, 1, s_ranks[m])) + a.eps;
+        xb ^= 1;
+        for (int n = tid; n < dm; n += kThreads) {
+          const float v = next[n] / den;
+          ufull[n] = v;
+          next[n] = cast_link<T>(v);
+        }
+        __syncthreads();
+      } else {
+        // sigma = u . (P v)
+        float d = 0.f;
+        for (int i = tid; i < n2; i += kThreads) {
+          d += ufull[lo2 + i] * ordered(in + i, a.segmax, senders);
+        }
+        d = block_sum(d, red);
+        sigma = all_sum(d, 2, s_ranks[m]);  // the last exchange
+      }
+    }
+  }
+
+  if (rank == 0) {
+    for (int n = tid; n < dm; n += kThreads) a.u_out[n] = ufull[n];
+    if (tid == 0) a.sigma[0] = sigma;
+  }
+  if (a.rho <= 0.f) return;
+
+  // simple_norm: w16 <- bf16(f32(w16) * f_i), master <- master * f_i
+  if (tid == 0) {
+    float s = sigma;
+    for (int i = 0; i < m; ++i) {
+      const float fi = expf(logf(a.rho / (s + a.eps)) * a.inv_m);
+      part[i] = fi;
+      s = s * fi;
+    }
+  }
+  __syncthreads();
+  const int64_t t0 = static_cast<int64_t>(rank) * kThreads + tid;
+  const int64_t stride = static_cast<int64_t>(C) * kThreads;
+  for (int i = 0; i < m; ++i) {
+    const float fi = part[i];
+    const int64_t n = static_cast<int64_t>(a.dims[i]) * a.dims[i + 1];
+    bf16* w16 = static_cast<bf16*>(const_cast<void*>(a.w[i]));
+    float* ms = a.master[i];
+    const bool wide = n % 8 == 0 && reinterpret_cast<uintptr_t>(w16) % 16 == 0 &&
+                      (ms == nullptr || reinterpret_cast<uintptr_t>(ms) % 16 == 0);
+    if (wide) {
+      for (int64_t i8 = t0; i8 < n / 8; i8 += stride) {
+        uint4 raw = reinterpret_cast<uint4*>(w16)[i8];
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = __bfloat1622float2(h[q]);
+          h[q] = __floats2bfloat162_rn(v.x * fi, v.y * fi);
+        }
+        reinterpret_cast<uint4*>(w16)[i8] = raw;
+        if (ms != nullptr) {
+          float4* m4 = reinterpret_cast<float4*>(ms) + 2 * i8;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float4 v = m4[q];
+            v.x *= fi, v.y *= fi, v.z *= fi, v.w *= fi;
+            m4[q] = v;
+          }
+        }
+      }
+    } else {
+      for (int64_t e = t0; e < n; e += stride) {
+        w16[e] = __float2bfloat16(__bfloat162float(w16[e]) * fi);
+        if (ms != nullptr) ms[e] *= fi;
       }
     }
   }
 }
 
-// w16 <- bf16(f32(w16) * f[layer]); master <- master * f[layer].
-__global__ void pi_rescale(bf16* __restrict__ w16, float* __restrict__ master,
-                           int64_t n, const float* __restrict__ f, int layer) {
-  const float fi = f[layer];
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    w16[i] = __float2bfloat16(__bfloat162float(w16[i]) * fi);
-    if (master != nullptr) master[i] *= fi;
-  }
+template <typename T>
+cudaError_t set_attributes() {
+  const void* fn = reinterpret_cast<const void*>(pi_cluster_kernel<T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
-template <typename T>
-cudaError_t run_chain(const void* const* ws, const int* dims, int m, bool bf,
-                      const float* u_in, float* u_out, float* sigma,
-                      float* scratch, int n_iter, float eps, float rho,
-                      float inv_m, void* const* masters, cudaStream_t st) {
-  int dmax = 0;
-  for (int i = 0; i <= m; ++i) dmax = dims[i] > dmax ? dims[i] : dmax;
-  float* U = scratch;             // u_raw between rounds
-  float* A = scratch + dmax;      // ping-pong pair of the chain
-  float* Bv = scratch + 2 * dmax;
-  float* Y = scratch + 3 * dmax;  // P v of the last pass
-  float* F = scratch + 4 * dmax;  // simple_norm factors
-  const int tb = bf ? 1 : 0;
-  cudaError_t err = cudaSuccess;
-
-  // x (width dims[m]) -> P^T x through W_m .. W_1; returns the output buffer.
-  auto chain_pt = [&](const float* x) -> const float* {
-    float* bufs[2] = {A, Bv};
-    int flip = 0;
-    for (int j = m - 1; j >= 0 && err == cudaSuccess; --j) {
-      float* y = bufs[flip];
-      flip ^= 1;
-      const int din = dims[j], dout = dims[j + 1];
-      pi_link_pt<T><<<(din + kWarps - 1) / kWarps, kThreads,
-                      dout * sizeof(float), st>>>(
-          static_cast<const T*>(ws[j]), din, dout, x, y, j == m - 1, tb, eps);
-      err = cudaGetLastError();
-      x = y;
-    }
-    return x;
-  };
-  // x (width dims[0], in A or Bv) -> P x through W_1 .. W_m into dst.
-  auto chain_p = [&](const float* x, float* dst) {
-    for (int j = 0; j < m && err == cudaSuccess; ++j) {
-      float* y = (j == m - 1) ? dst : (x == A ? Bv : A);
-      const int din = dims[j], dout = dims[j + 1];
-      pi_link_p<T><<<(dout + kColsP - 1) / kColsP, kThreads,
-                     din * sizeof(float), st>>>(
-          static_cast<const T*>(ws[j]), din, dout, x, y, j == 0, tb, eps);
-      err = cudaGetLastError();
-      x = y;
-    }
-  };
-
-  const float* cur = u_in;
-  for (int it = 0; it < n_iter && err == cudaSuccess; ++it) {
-    chain_p(chain_pt(cur), U);
-    cur = U;
-  }
-  chain_p(chain_pt(cur), Y);
+// The attributes are per device: set them at the first use on each one.
+cudaError_t ensure_attributes() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const bool project = rho > 0.f;
-  pi_finish<<<1, kThreads, dims[m] * sizeof(float), st>>>(
-      cur, Y, dims[m], eps, u_out, sigma, project ? F : nullptr, m, rho,
-      inv_m);
-  err = cudaGetLastError();
-  if (!project || err != cudaSuccess) return err;
-  for (int i = 0; i < m && err == cudaSuccess; ++i) {
-    const int64_t n = static_cast<int64_t>(dims[i]) * dims[i + 1];
-    const int blocks = static_cast<int>((n + kThreads * 4 - 1) / (kThreads * 4));
-    pi_rescale<<<blocks, kThreads, 0, st>>>(
-        static_cast<bf16*>(const_cast<void*>(ws[i])),
-        masters != nullptr ? static_cast<float*>(masters[i]) : nullptr, n, F,
-        i);
-    err = cudaGetLastError();
-  }
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = set_attributes<bf16>();
+  if (err == cudaSuccess) err = set_attributes<float>();
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
   return err;
+}
+
+void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                   int cluster, int smem, cudaStream_t st) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
 }
 
 }  // namespace
 
-// Enqueues the whole power iteration on `stream` and returns the first
-// cudaGetLastError() that is not 0 (0 on success). ws[i] is a (dims[i],
-// dims[i+1]) row-major device array, bf16 when wbf16 else fp32; u_in, u_out
-// (dims[m],) fp32, may alias; sigma (1,) fp32; scratch 4*max(dims) + m fp32.
-// rho > 0 also applies the simple_norm rescale (bf16 kernels only) and to
-// masters[i] (fp32, same shapes) when masters is not null.
+// Enqueues the whole power iteration as one cluster launch on `stream` and
+// returns cudaGetLastError() (0 on success). ws[i] is a (dims[i], dims[i+1])
+// row-major device array, bf16 when wbf16 else fp32; u_in, u_out (dims[m],)
+// fp32, may alias; sigma (1,) fp32. rho > 0 also applies the simple_norm
+// rescale (bf16 kernels only) and to masters[i] (fp32, same shapes) when
+// masters is not null. The plan comes from ops/cuda_spectral.py::pi_plan:
+// `cluster` blocks, per[i] (i <= m) entries of dimension i per block,
+// res_off[i] the byte offset of layer i's resident slice in the block's
+// `smem_bytes` of dynamic shared memory, or -1 for a layer read from global
+// memory.
 extern "C" int asr_pi_run(const void* const* ws, const int* dims, int m,
                           int wbf16, const void* u_in, void* u_out,
-                          void* sigma, void* scratch, int n_iter, float eps,
-                          float rho, float inv_m, void* const* masters,
+                          void* sigma, int n_iter, float eps, float rho,
+                          float inv_m, void* const* masters, int cluster,
+                          const int* per, const int* res_off, int smem_bytes,
                           void* stream) {
-  if (m < 1 || n_iter < 0 || (rho > 0.f && !wbf16)) {
+  if (m < 1 || m > kMaxLayers || n_iter < 0 || (rho > 0.f && !wbf16) ||
+      cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+      smem_bytes > kSmemMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  PiArgs a{};
+  const int esize = wbf16 ? 2 : 4;
+  int dmax = 0, segmax = 0;
   for (int i = 0; i <= m; ++i) {
-    if (dims[i] < 1 || dims[i] > kMaxDim) {
+    if (dims[i] < 1 || dims[i] > kMaxDim || per[i] < 1 ||
+        static_cast<int64_t>(per[i]) * cluster < dims[i]) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    a.dims[i] = dims[i];
+    a.per[i] = per[i];
+    dmax = dims[i] > dmax ? dims[i] : dmax;
+    segmax = per[i] > segmax ? per[i] : segmax;
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* ui = static_cast<const float*>(u_in);
-  auto* uo = static_cast<float*>(u_out);
-  auto* sg = static_cast<float*>(sigma);
-  auto* sc = static_cast<float*>(scratch);
-  const cudaError_t err =
-      wbf16 ? run_chain<bf16>(ws, dims, m, true, ui, uo, sg, sc, n_iter, eps,
-                              rho, inv_m, masters, st)
-            : run_chain<float>(ws, dims, m, false, ui, uo, sg, sc, n_iter, eps,
-                               rho, inv_m, masters, st);
-  return static_cast<int>(err);
+  a.dmax_e = (dmax + 3) & ~3;
+  a.dm_e = (dims[m] + 3) & ~3;
+  a.segmax = segmax;
+  const int vec_bytes =
+      4 * vector_floats(a.dmax_e, a.dm_e, segmax, cluster);
+  if (vec_bytes > smem_bytes) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < m; ++i) {
+    a.w[i] = ws[i];
+    a.master[i] =
+        masters != nullptr ? static_cast<float*>(masters[i]) : nullptr;
+    a.res_off[i] = res_off[i];
+    const int64_t slice = static_cast<int64_t>(per[i]) * dims[i + 1] * esize;
+    if (res_off[i] >= 0 && (res_off[i] < vec_bytes || res_off[i] % 16 != 0 ||
+                            res_off[i] + slice > smem_bytes)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // four entries at a time: rows start on 8- (bf16) or 16-byte (fp32)
+    // boundaries, and four columns share an owner
+    a.vec[i] = dims[i + 1] % 4 == 0 && per[i + 1] % 4 == 0 &&
+               reinterpret_cast<uintptr_t>(ws[i]) % (4 * esize) == 0;
+  }
+  a.m = m;
+  a.n_iter = n_iter;
+  a.cluster = cluster;
+  a.eps = eps;
+  a.rho = rho;
+  a.inv_m = inv_m;
+  a.u_in = static_cast<const float*>(u_in);
+  a.u_out = static_cast<float*>(u_out);
+  a.sigma = static_cast<float*>(sigma);
+  cudaError_t err = ensure_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  launch_config(&cfg, &attr, cluster, smem_bytes,
+                static_cast<cudaStream_t>(stream));
+  err = wbf16 ? cudaLaunchKernelEx(&cfg, pi_cluster_kernel<bf16>, a)
+              : cudaLaunchKernelEx(&cfg, pi_cluster_kernel<float>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Loads every kernel of this library into the current context, so that a
-// later CUDA-graph capture does not load modules lazily.
-extern "C" int asr_pi_preload() {
-  cudaFuncAttributes a;
-  const void* fns[] = {
-      reinterpret_cast<const void*>(pi_link_pt<bf16>),
-      reinterpret_cast<const void*>(pi_link_pt<float>),
-      reinterpret_cast<const void*>(pi_link_p<bf16>),
-      reinterpret_cast<const void*>(pi_link_p<float>),
-      reinterpret_cast<const void*>(pi_finish),
-      reinterpret_cast<const void*>(pi_rescale)};
+// Loads both kernels into the current context and sets their attributes, so
+// that a later CUDA-graph capture neither loads modules lazily nor changes
+// a function attribute. Writes to *max_clusters how many clusters of
+// `cluster` blocks with the full 227 KB of shared memory the device can
+// hold at once; 0 means such a cluster can never be scheduled, and the
+// caller must not launch one.
+extern "C" int asr_pi_preload(int cluster, int* max_clusters) {
+  cudaError_t err = ensure_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  const void* fns[] = {reinterpret_cast<const void*>(pi_cluster_kernel<bf16>),
+                       reinterpret_cast<const void*>(pi_cluster_kernel<float>)};
   for (const void* fn : fns) {
-    const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+    err = cudaFuncGetAttributes(&fa, fn);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  launch_config(&cfg, &attr, cluster, kSmemMax, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, pi_cluster_kernel<bf16>, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *max_clusters = n;
   return 0;
 }

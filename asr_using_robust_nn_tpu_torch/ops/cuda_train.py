@@ -43,7 +43,7 @@ from ..models.mlp import MLPConfig, init_mlp
 from ..train.epoch_scan import build_epoch_fn, shuffle_batches
 from ..train.trainer import _generator, adam_optimizer
 from ._build import load_library
-from .cuda_spectral import pi_launch, pi_scratch, preload
+from .cuda_spectral import pi_launch, preload
 from .spectral import product_spectral_norm_with_state
 
 __all__ = ["FusedStepSpec", "pack_state", "unpack_params", "unpack_opt_state",
@@ -276,7 +276,6 @@ def _scratch(spec: FusedStepSpec, device) -> dict:
         "sdvec": torch.zeros((m, dmax), **f32),
         "denom": torch.empty(1, **f32),
         "sigma": torch.empty(1, **f32),
-        "pi": pi_scratch(pd, device),
     }
 
 
@@ -603,7 +602,7 @@ class _CudaOps:
             self._stream()))
 
     def project(self, fs, sc):
-        pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"], sc["pi"],
+        pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"],
                   self.spec.pi_iters, _EPS, rho=self.spec.rho,
                   masters=list(fs["masters"]))
 

@@ -36,9 +36,7 @@ FAMILIES = (
     ("EpiStore", "dX GEMM"),
     ("EpiHidden", "forward GEMM"),
     ("EpiLogits", "forward GEMM"),
-    ("pi_link_pt", "K2 P^T-links"),
-    ("pi_link_p", "K2 P-links"),
-    ("pi_", "K2 finish + rescale"),
+    ("pi_cluster", "K2 (one cluster launch per step: links, finish, rescale)"),
     ("fe_bn_bwd", "BN backward (+ Adam of gamma, beta, b)"),
     ("fe_bn_fwd", "BN forward"),
     ("fe_ce", "softmax-CCE"),

@@ -142,3 +142,121 @@ def test_backends_agree_on_cpu_and_bad_backend_raises():
             assert torch.equal(a, b)
     with pytest.raises(ValueError):
         make_simple_norm_constraint(0.5, pi_backend="xla")
+
+
+# -- K2's cluster launch: the host-side partition plan and its ordered twin --
+
+from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (  # noqa: E402
+    CLUSTER_SIZE, SMEM_MAX, pi_plan, product_spectral_norm_partitioned)
+
+PLAN_CHAINS = {
+    "digit": (880, 1024, 512, 256, 128, 64, 10),
+    "digit_padded": (896, 1024, 512, 256, 128, 128, 128),
+    "speaker": (2000, 1024, 512, 256, 128, 64, 20),
+    "width_10": (300, 10),
+    "width_8192": (64, 8192, 32),
+    "square_8192": (8192, 8192, 10),
+    "odd": (33, 7, 129, 5),
+}
+
+
+@pytest.mark.parametrize("wbf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("chain", PLAN_CHAINS)
+def test_pi_plan_partitions_every_dimension(chain, cluster, wbf16):
+    """Every index of every dimension is owned by exactly one block, slices
+    are contiguous, in rank order and start on an even index; the resident
+    slices are 16-byte aligned, disjoint, behind the vectors, and a block's
+    shared memory stays within the 232 448 bytes an H100 gives it."""
+    dims = PLAN_CHAINS[chain]
+    plan = pi_plan(dims, cluster, wbf16)
+    assert plan.dims == dims and plan.cluster == cluster
+    assert plan.esize == (2 if wbf16 else 4)
+    for i, d in enumerate(dims):
+        owner = np.full(d, -1)
+        for rank in range(cluster):
+            lo, hi = plan.owned(i, rank)
+            assert 0 <= lo <= hi <= d and (lo % 2 == 0 or lo == hi)
+            assert (owner[lo:hi] == -1).all()
+            owner[lo:hi] = rank
+            assert (hi > lo) == (rank < plan.ranks(i))
+        assert (owner >= 0).all() and (np.diff(owner) >= 0).all()
+    assert plan.smem_bytes <= SMEM_MAX == 232448
+    spans = []
+    for j in range(len(dims) - 1):
+        assert plan.resident[j] == (plan.res_off[j] >= 0)
+        if plan.resident[j]:
+            size = plan.per[j] * dims[j + 1] * plan.esize
+            assert plan.res_off[j] % 16 == 0
+            assert plan.res_off[j] >= plan.vec_bytes
+            assert plan.res_off[j] + size <= plan.smem_bytes
+            spans.append((plan.res_off[j], plan.res_off[j] + size))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_pi_plan_residency_and_refusals():
+    """On 16 blocks the whole bf16 digit stack is resident; on 8 its first
+    layer (229 KB a block) is read from global memory; a layer is never
+    made resident past the limit. What the plan refuses raises."""
+    padded = PLAN_CHAINS["digit_padded"]
+    assert all(pi_plan(padded, 16, True).resident)
+    assert pi_plan(padded, 8, True).resident == (False,) + (True,) * 5
+    assert pi_plan(PLAN_CHAINS["square_8192"], 16, True).resident == \
+        (False, True)
+    assert pi_plan(padded) == pi_plan(padded, CLUSTER_SIZE, True)
+    with pytest.raises(ValueError, match="widths"):
+        pi_plan((10, 8193), 16, True)
+    with pytest.raises(ValueError, match="layers"):
+        pi_plan((4,) * 18, 16, True)
+    with pytest.raises(ValueError, match="cluster"):
+        pi_plan((4, 4), 3, True)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n_iter", [0, 4, 16])
+def test_partitioned_twin_matches_twin_pallas_and_xla(rng, n_iter, bf16,
+                                                      cluster):
+    """The partition-ordered twin against the plain twin and both JAX forms
+    on the JAX suite's stack, at the twin's own bars: sigma rtol 5e-3 and u
+    atol 5e-3 with bf16 matvecs (summation order), 1e-4 in fp32."""
+    ws = _stack(rng)
+    u0 = _u0()
+    tws = [torch.from_numpy(w) for w in ws]
+    sig, u = product_spectral_norm_partitioned(
+        tws, torch.from_numpy(u0), n_iter, EPS, bf16, cluster)
+    sig_t, u_t = product_spectral_norm_with_state(
+        tws, torch.from_numpy(u0), n_iter=n_iter, eps=EPS,
+        matvec_dtype=torch.bfloat16 if bf16 else None)
+    jws = [jnp.asarray(w) for w in ws]
+    sig_p, u_p = product_spectral_norm_pallas(
+        jws, jnp.asarray(u0), n_iter=n_iter, matvec_bf16=bf16,
+        interpret=True)
+    sig_x, u_x = jpsn(jws, jnp.asarray(u0), n_iter=n_iter, eps=EPS,
+                      matvec_dtype=jnp.bfloat16 if bf16 else None)
+    bar = 5e-3 if bf16 else 1e-4
+    for s_ref, u_ref in ((sig_t, u_t.numpy()), (sig_p, u_p), (sig_x, u_x)):
+        np.testing.assert_allclose(float(sig), float(s_ref), rtol=bar)
+        np.testing.assert_allclose(u.numpy(), np.asarray(u_ref), atol=bar)
+
+
+@pytest.mark.parametrize("chain", ["digit", "speaker", "width_8192", "odd"])
+def test_partitioned_twin_at_real_widths(chain):
+    """At widths where the partition is not trivial (many blocks own rows,
+    trailing blocks own none), bf16 and fp32, against the plain twin."""
+    dims = PLAN_CHAINS[chain]
+    rng = np.random.default_rng(len(dims))
+    ws = [torch.from_numpy(np.abs(rng.standard_normal((a, b)))
+                           .astype(np.float32) * 0.05)
+          for a, b in zip(dims[:-1], dims[1:])]
+    u0 = torch.from_numpy(rng.standard_normal(dims[-1]).astype(np.float32))
+    for bf16, bar in ((True, 5e-3), (False, 1e-4)):
+        for cluster in (8, 16):
+            sig, u = product_spectral_norm_partitioned(ws, u0, 4, EPS, bf16,
+                                                       cluster)
+            sig_t, u_t = product_spectral_norm_with_state(
+                ws, u0, n_iter=4, eps=EPS,
+                matvec_dtype=torch.bfloat16 if bf16 else None)
+            np.testing.assert_allclose(float(sig), float(sig_t), rtol=bar)
+            np.testing.assert_allclose(u.numpy(), u_t.numpy(), atol=bar)

@@ -301,3 +301,194 @@ class TestFrontend:
         mfcc_cuda_batch(torch.from_numpy(w), cfg)
         Frontend(cfg, device="cpu")(w)
         assert mel_power_cuda.launches == before == 0
+
+
+# -- K1's FFT body: its host-side tables and its float64 decomposition twin --
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+from asr_using_robust_nn_tpu_torch.ops import cuda_mfcc  # noqa: E402
+from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (  # noqa: E402
+    fft_spectrum_plain,
+    fft_tables,
+    frames_per_block,
+    kernel_body,
+    mel_power_fft_plain,
+    stage_permutation,
+    stage_plan,
+)
+
+FFT_SIZES = [32, 64, 128, 256, 512, 1024, 2048, 4096]
+# a window shorter than n_fft (zero padded to the centre) and an odd hop
+SHORT_WINDOW = dataclasses.replace(FrontendConfig.digit(), n_fft=512,
+                                   win_length=400, hop_length=161)
+FFT_CONFIGS = {"digit": FrontendConfig.digit(), "win400_hop161": SHORT_WINDOW}
+
+
+def _dense_spectrum(frames, cfg):
+    """The windowed rDFT as the float64 dense product (re, im)."""
+    cr, ci = filters.rdft_matrices(cfg.n_fft, cfg.win_length)
+    return frames @ cr, frames @ ci
+
+
+class TestFftBody:
+    def test_body_is_a_function_of_the_config(self):
+        assert kernel_body(FrontendConfig.digit()) == "fft"
+        assert kernel_body(FrontendConfig.speaker()) == "dense"
+        assert kernel_body(FrontendConfig.speaker_fast()) == "dense"
+        assert kernel_body(SHORT_WINDOW) == "fft"
+        for n_fft, want in ((16, "dense"), (32, "fft"), (4096, "fft"),
+                            (8192, "dense"), (1000, "dense")):
+            cfg = dataclasses.replace(FrontendConfig.digit(), n_fft=n_fft,
+                                      win_length=n_fft)
+            assert kernel_body(cfg) == want
+        with pytest.raises(ValueError, match="power of two"):
+            fft_tables(FrontendConfig.speaker())
+        with pytest.raises(ValueError, match="power of two"):
+            mel_power_fft_plain(torch.zeros(1, 22050),
+                                FrontendConfig.speaker())
+
+    @pytest.mark.parametrize("n_fft", FFT_SIZES)
+    def test_tables(self, n_fft):
+        """Lengths, float64, unit-modulus twiddles, a window that is the
+        centre-padded Hann, bands that rebuild the fp32 filterbank."""
+        win = n_fft if n_fft != 512 else 400
+        cfg = dataclasses.replace(FrontendConfig.digit(), n_fft=n_fft,
+                                  win_length=win)
+        tab = fft_tables(cfg)
+        m = n_fft // 2
+        assert tab.m == m and int(np.prod(tab.radices)) == m
+        assert set(tab.radices) <= {2, 4} and tab.radices.count(2) <= 1
+        assert tab.window.shape == (n_fft,) and tab.window.dtype == np.float64
+        np.testing.assert_array_equal(
+            tab.window, filters.pad_center(filters.hann_window(win), n_fft))
+        for t, n in ((tab.twiddle, m), (tab.split, m + 1)):
+            assert t.shape == (n, 2) and t.dtype == np.float64
+            np.testing.assert_allclose(np.hypot(t[:, 0], t[:, 1]), 1.0,
+                                       rtol=0, atol=1e-15)
+        k = np.arange(m + 1)
+        np.testing.assert_allclose(
+            tab.split[:, 0] + 1j * tab.split[:, 1],
+            np.exp(-2j * np.pi * k / n_fft), rtol=0, atol=1e-15)
+        assert tab.pos.shape == (m,) and tab.pos.dtype == np.int32
+        assert tab.band_start.shape == (cfg.n_mels,)
+        assert tab.band_off.shape == (cfg.n_mels + 1,)
+        assert tab.band_w.dtype == np.float32
+        assert tab.band_w.shape == (tab.band_off[-1],)
+        mel = np.zeros((cfg.n_mels, cfg.n_freq), np.float32)
+        for b in range(cfg.n_mels):
+            n = tab.band_off[b + 1] - tab.band_off[b]
+            mel[b, tab.band_start[b]: tab.band_start[b] + n] = \
+                tab.band_w[tab.band_off[b]: tab.band_off[b + 1]]
+        np.testing.assert_array_equal(mel.T, cfg.constants(np.float32)[2])
+
+    @settings(max_examples=40, deadline=None)
+    @given(n_fft=st.sampled_from(FFT_SIZES), data=st.data())
+    def test_stage_permutation_is_a_bijection(self, n_fft, data):
+        """For every n_fft the FFT body admits, and for its stages in any
+        order, the stages' output permutation hits every index once; at
+        the body's own plan the stages leave output k at pos[k]."""
+        m = n_fft // 2
+        plan = stage_plan(m)
+        radices = tuple(data.draw(st.permutations(plan)))
+        pos = stage_permutation(m, radices)
+        assert sorted(pos.tolist()) == list(range(m))
+        tab = cuda_mfcc._fft_tables(n_fft, n_fft, 22050, 128)._replace(
+            radices=radices, pos=pos)
+        rng = np.random.default_rng(n_fft)
+        z = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+        got = cuda_mfcc._butterflies(torch.from_numpy(z), tab).numpy()[pos]
+        want = np.fft.fft(z)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+
+    @pytest.mark.parametrize("name", FFT_CONFIGS)
+    def test_spectrum_matches_dense_dft_f64(self, name):
+        """Real and imaginary parts against the float64 dense product, 1e-10
+        of the frame's largest bin: a twiddle, ordering or sign error (the
+        power hides the imaginary part's sign) is of order one."""
+        cfg = FFT_CONFIGS[name]
+        frames = np.random.default_rng(5).standard_normal((7, cfg.n_fft))
+        got = fft_spectrum_plain(torch.from_numpy(frames),
+                                 fft_tables(cfg)).numpy()
+        re, im = _dense_spectrum(frames, cfg)
+        assert got.shape == re.shape == (7, cfg.n_freq)
+        scale = np.abs(re + 1j * im).max(axis=1, keepdims=True)
+        assert (np.abs(got.real - re) <= 1e-10 * scale).all()
+        assert (np.abs(got.imag - im) <= 1e-10 * scale).all()
+        assert np.abs(got.imag[:, 1:-1]).min() > 0  # the sign is tested
+
+    @pytest.mark.parametrize("batch", [1, 3])
+    def test_matches_pallas_interpret_and_plain(self, batch):
+        """The digit preset (the one the FFT body takes) at the bar the
+        plain twin is held to against the Pallas kernel: rtol 1e-4 plus
+        1e-8 of the batch's peak (two fp32 GEMM chains on the other side)."""
+        cfg, jcfg = _configs("digit")
+        w = _waves(batch, seed=batch, gap=False)
+        got = mel_power_fft_plain(torch.from_numpy(w), cfg).numpy()
+        assert got.dtype == np.float32
+        want = np.asarray(mel_power_pallas(w, jcfg, interpret=True))
+        assert got.shape == want.shape == (batch, cfg.num_frames(22050), 128)
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-8 * want.max())
+        plain = mel_power_plain(torch.from_numpy(w), cfg).numpy()
+        np.testing.assert_allclose(got, plain, rtol=1e-4,
+                                   atol=1e-8 * plain.max())
+
+    @pytest.mark.parametrize("name", FFT_CONFIGS)
+    def test_mel_matches_f64_chain(self, name):
+        """Against the float64 dense chain with float64 constants: 1e-6
+        relative (the power's one rounding to fp32), rows with a silent
+        stretch and a short row included."""
+        cfg = FFT_CONFIGS[name]
+        w = _waves(3, seed=2)
+        w[2, 9000:] = 0.0
+        got = mel_power_fft_plain(torch.from_numpy(w), cfg).numpy()
+        n_frames = cfg.num_frames(22050)
+        frames = frame_signal(
+            torch.from_numpy(np.pad(w.astype(np.float64),
+                                    ((0, 0), (cfg.n_fft // 2,) * 2))),
+            n_frames, cfg.n_fft, cfg.hop_length).numpy()
+        re, im = _dense_spectrum(frames, cfg)
+        want = (re * re + im * im) @ cfg.constants(np.float32)[2].astype(
+            np.float64)
+        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                   atol=1e-12 * want.max())
+
+    @pytest.mark.parametrize("name", FFT_CONFIGS)
+    def test_mfcc_matches_oracle_with_lengths(self, name):
+        """The FFT body's MFCC (its twin + the shared finish) within 5e-4
+        abs of the f64 oracle, rows of every length."""
+        cfg = FFT_CONFIGS[name]
+        w, lens = TestMFCC._masked_batch()
+        mel = mel_power_fft_plain(torch.from_numpy(w), cfg)
+        got = finish_mfcc_from_mel(
+            mel, cfg, torch.from_numpy(lens), 4, cfg.num_frames(22050),
+            device_constants(cfg, torch.device("cpu"))[3]).numpy()
+        for i, n in enumerate(lens[:3]):
+            np.testing.assert_allclose(got[i], _oracle(cfg, w[i, :n]),
+                                       atol=5e-4, rtol=0)
+
+    def test_mfcc_matches_golden(self):
+        """The frozen golden vectors at 5e-4 abs: the bar the fp32 paths
+        miss on the chirp and the float64 transform meets."""
+        cfg = FrontendConfig.digit()
+        waves = np.stack([GOLD[f"in_{n}"] for n in GOLD_NAMES])
+        mel = mel_power_fft_plain(torch.from_numpy(waves), cfg)
+        got = finish_mfcc_from_mel(
+            mel, cfg, None, 3, cfg.num_frames(waves.shape[1]),
+            device_constants(cfg, torch.device("cpu"))[3]).numpy()
+        want = np.stack([GOLD[f"digit_{n}"] for n in GOLD_NAMES])
+        np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+
+    @pytest.mark.parametrize("rows,want", [(44, 1), (704, 2), (2816, 4),
+                                           (45056, 4)])
+    def test_frames_per_block(self, rows, want):
+        """On 132 SMs at the digit preset: a lone utterance one frame a
+        block, a 16-row bucket two, 64 rows and up four; two blocks of the
+        chosen size fit one SM's shared memory."""
+        f = frames_per_block(rows, 1024, 132)
+        assert f == want
+        assert 2 * f * ((1024 + 128) * 16 + 1028 * 4) <= 232448
+        assert frames_per_block(10 ** 6, 2048, 132) == 2  # n_fft 4096

@@ -72,3 +72,65 @@ def test_k4_k5_reject_what_they_do_not_take(dev, wrapper):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert out.shape == (2, cfg.num_frames(22050), 128) and not out.any()
+
+
+def test_k1_bodies_and_what_the_config_refuses(dev):
+    """The FFT body answers the digit preset, the dense body the speaker
+    preset, each with one launch; a hop below 1 or a window longer than
+    n_fft is refused before any launch."""
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import kernel_body
+
+    w = torch.zeros((2, 22050), device=dev)
+    for cfg, body in ((FrontendConfig.digit(), "fft"),
+                      (FrontendConfig.speaker(), "dense")):
+        assert kernel_body(cfg) == body
+        before = mel_power_cuda.launches
+        out = mel_power_cuda(w, cfg)  # a silent batch gives zeros
+        torch.cuda.synchronize()
+        assert mel_power_cuda.launches == before + 1
+        assert out.shape == (2, cfg.num_frames(22050), 128) and not out.any()
+    before = mel_power_cuda.launches
+    with pytest.raises(ValueError, match="hop_length"):
+        mel_power_cuda(w, dataclasses.replace(FrontendConfig.digit(),
+                                              hop_length=0))
+    with pytest.raises(ValueError, match="win_length"):
+        mel_power_cuda(w, dataclasses.replace(FrontendConfig.digit(),
+                                              win_length=4096))
+    with pytest.raises(ValueError, match="mel"):
+        mel_power_cuda(w, dataclasses.replace(FrontendConfig.digit(),
+                                              n_mels=64))
+    assert mel_power_cuda.launches == before
+
+
+def test_k2_rejects_what_it_does_not_take(dev):
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        pi_launch, preload, product_spectral_norm_cuda)
+
+    assert preload() >= 1  # a 16-block cluster can be scheduled here
+    ws = [torch.rand((12, 8), device=dev), torch.rand((8, 4), device=dev)]
+    u = torch.rand(4, device=dev)
+    before = product_spectral_norm_cuda.launches
+    with pytest.raises(ValueError, match="float32"):
+        product_spectral_norm_cuda(ws, u.double())
+    with pytest.raises(ValueError, match="chain"):
+        product_spectral_norm_cuda(ws[::-1], u)
+    with pytest.raises(ValueError, match="last kernel"):
+        product_spectral_norm_cuda(ws, torch.rand(5, device=dev))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        product_spectral_norm_cuda([w.cpu() for w in ws], u)
+    with pytest.raises(ValueError, match="8192"):
+        product_spectral_norm_cuda(
+            [torch.rand((4, 8200), device=dev),
+             torch.rand((8200, 4), device=dev)], u)
+    with pytest.raises(ValueError, match="layers"):
+        product_spectral_norm_cuda(
+            [torch.rand((4, 4), device=dev) for _ in range(17)], u)
+    assert product_spectral_norm_cuda.launches == before
+    # the rescale needs bf16 kernels: the C entry refuses fp32 ones
+    sigma = torch.empty(1, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pi_launch(ws, u, u.clone(), sigma, 4, rho=0.1)
+    sig, u2 = product_spectral_norm_cuda(ws, u, n_iter=0)
+    torch.cuda.synchronize()
+    assert product_spectral_norm_cuda.launches == before + 1
+    assert torch.isfinite(sig) and abs(float(u2.norm()) - 1.0) < 1e-5
