@@ -24,10 +24,10 @@ two operations swapped:
 So `w16` is state, carried from step to step (after a constrained step it is
 `bf16(bf16(w) * f)`, not a cast of the masters), `count` advances by one per
 call on the device, and `unpack_params` (or the grid epoch) must fold
-`scales` into the masters. On CUDA the forward GEMMs, BN, CCE, dX and the
-power-iteration links are the compiled functions K3 launches; the streamed
-dW + Adam kernel with the fold and the deferred rescale are
-csrc/fused_step.cu. A CUDA tensor never falls back to the twin.
+`scales` into the masters. On CUDA the fused forward, the CCE, dX with the
+BN backward and the power iteration are the compiled functions K3 launches,
+in the forms `launch_plan(spec)` gives; the dW + Adam kernel with the fold
+and the deferred rescale are csrc/fused_step.cu. A CUDA tensor never falls back to the twin.
 `build_fused_step.launches` counts graph replays (one per step).
 """
 
@@ -41,9 +41,9 @@ import torch
 
 from ._build import load_library
 from .cuda_spectral import pi_launch, preload
-from .cuda_train import (_BF16, _EPS, FusedStepSpec, _AdamArgs, _check,
-                         _CudaOps, _lib as _epoch_lib, _PlainOps, _scratch,
-                         _state_leaves, _state_map, _step, _template_state)
+from .cuda_train import (_BF16, _EPS, FusedStepSpec, _AdamArgs, _CudaOps,
+                         _PlainOps, _scratch, _state_leaves,
+                         _state_map, _step, _template_state, preload_kernels)
 
 __all__ = ["build_fused_step", "fused_step_plain", "fused_steps_plain",
            "KERNEL_SOURCE", "REPLACES"]
@@ -86,10 +86,11 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sig = {
         "asr_fs_dw_adam": [p, p, p, p, p, p, i, i, i, p, p, i,
-                           ctypes.POINTER(_AdamArgs), i, p],
+                           ctypes.POINTER(_AdamArgs), i,
+                           ctypes.POINTER(ctypes.c_int), p],
         "asr_fs_rescale": [p, p, i, p, p, f, f, f, p],
         "asr_fs_scales_one": [p, p],
-        "asr_fs_preload": [],
+        "asr_fs_preload": [ctypes.POINTER(ctypes.c_int)],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)
@@ -102,34 +103,36 @@ class _CudaStepOps(_CudaOps):
     """K3's launches with K6's two operations from csrc/fused_step.cu."""
 
     def __init__(self, spec: FusedStepSpec):
-        super().__init__(spec)
         if spec.n_layers > _MAX_LAYERS:
             raise ValueError(f"fused step: at most {_MAX_LAYERS} layers, got "
                              f"{spec.n_layers}")
+        super().__init__(spec)
         self.slib = _lib()
 
     def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
         K, M = acts.shape
-        _check("dw_adam", self.slib.asr_fs_dw_adam(
+        self._ran("dw_adam", self.slib.asr_fs_dw_adam(
             acts.data_ptr(), dzb.data_ptr(), fs["masters"][i].data_ptr(),
             fs["mw"][i].data_ptr(), fs["vw"][i].data_ptr(),
             fs["w16"][i].data_ptr(), M, dzb.shape[1], K, count.data_ptr(),
             fs["scales"].data_ptr(), i, ctypes.byref(self.adam),
-            int(self.spec.cfg.nonneg), self._stream()))
+            int(self.spec.cfg.nonneg), self.plan["dw"][i].dims(),
+            self._stream()))
 
     def project(self, fs, sc):
         spec, m = self.spec, self.spec.n_layers
         pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"],
                   spec.pi_iters, _EPS)
+        self.launched += 1
         ws = (ctypes.c_void_p * m)(*[w.data_ptr() for w in fs["w16"]])
         ns = (ctypes.c_longlong * m)(*[w.numel() for w in fs["w16"]])
-        _check("rescale", self.slib.asr_fs_rescale(
+        self._ran("rescale", self.slib.asr_fs_rescale(
             ws, ns, m, sc["sigma"].data_ptr(), fs["scales"].data_ptr(),
             float(spec.rho), _EPS, float(np.float32(1.0 / m)),
             self._stream()))
 
     def scales_one(self, scales):
-        _check("scales_one", self.slib.asr_fs_scales_one(
+        self._ran("scales_one", self.slib.asr_fs_scales_one(
             scales.data_ptr(), self._stream()))
 
 
@@ -183,13 +186,11 @@ class _StepGraph:
     """Static buffers and the CUDA graph of one (spec, device): the state,
     one batch, the seed, and the step's loss and accuracy. `load` copies a
     caller's state in, `replay` runs one step on it in place, `store` clones
-    it out."""
+    it out. `kernel_nodes` is the number of kernels the graph holds."""
 
     def __init__(self, spec: FusedStepSpec, device):
         B, pd = spec.batch, spec.pdims
-        if B % 64 or B <= 0:
-            raise ValueError(f"fused step on CUDA: batch must be a positive "
-                             f"multiple of 64, got {B}")
+        ops = _CudaStepOps(spec)  # the plan refuses what the kernels do not take
         self.spec = spec
         self.device = device
         with torch.cuda.device(device):
@@ -202,15 +203,15 @@ class _StepGraph:
             self.loss = torch.zeros(1, device=device)
             self.acc = torch.zeros(1, device=device)
             self.sc = _scratch(spec, device)
-            ops = _CudaStepOps(spec)
-            _check("preload", _epoch_lib().asr_fe_preload())
-            _check("preload", ops.slib.asr_fs_preload())
+            preload_kernels(ops.lib)
+            preload_kernels(ops.slib, "asr_fs_preload")
             preload()
             torch.cuda.synchronize(device)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 _k6_step(ops, spec, self.fs, self.sc, self.x, self.y, self.w,
                          self.seed, self.loss, self.acc)
+            self.kernel_nodes = ops.launched
 
     def load(self, fstate):
         for dst, src in zip(_state_leaves(self.fs), _state_leaves(fstate)):

@@ -21,6 +21,13 @@ state both run on. Counterpart of the JAX package's `ops/pallas_train.py`
   epoch_parity_vs_plain(...)
       the numeric check the trainer runs before it trains with K3.
 
+  launch_plan(spec)
+      the form of every kernel launch of a step, from the spec alone: tile,
+      grid, cluster, stages, shared memory, and whether BN rides in the GEMM
+      epilogues. `_CudaOps` takes each launch's form and cluster split from
+      it; the C entries form the same grids from the matrix shapes and
+      refuse any other.
+
 Both the twin and the kernels run one step program, `_step`, over one set
 of buffers; only the operations differ (`_PlainOps`, `_CudaOps`). A CUDA
 tensor never falls back to the twin. `build_fused_epoch_call.launches` counts
@@ -49,7 +56,7 @@ from .spectral import product_spectral_norm_with_state
 __all__ = ["FusedStepSpec", "pack_state", "unpack_params", "unpack_opt_state",
            "pad_features", "fused_epoch_plain", "build_fused_epoch_call",
            "build_fused_epoch_fn", "epoch_parity_vs_plain", "parity_bars",
-           "dropout_keep",
+           "dropout_keep", "launch_plan", "Launch",
            "KERNEL_SOURCE", "REPLACES"]
 
 KERNEL_SOURCE = "asr_using_robust_nn_tpu_torch/csrc/fused_epoch.cu"
@@ -260,8 +267,171 @@ def _view(buf: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return buf[: rows * cols].view(rows, cols)
 
 
+# The geometry of csrc/gemm_sm90.cuh and csrc/fused_epoch.cu that the plan is
+# written in. The entries launch with the plan's grid, cluster and bytes and
+# refuse a plan that does not fit their kernel; `preload_kernels` holds these
+# constants to the built library (`asr_fe_geometry`).
+_TILE = 64            # kTile: tile rows, columns and depth
+_STAGES = 4           # kStages
+_THREADS = 128        # kThreads: one warpgroup
+_RING_BYTES = 1024 + 2 * _STAGES * _TILE * 128   # alignment slack + the ring
+_STATE_BYTES = 3 * _TILE * _TILE * 4             # dW: master and moments
+_MAX_CLUSTER = 8      # the portable cluster size
+_CE_ROWS = 8          # fe_ce: rows per block
+_CE_MAX_WIDTH = 512   # fe_ce: widest padded class dimension
+_COL_WIDTH = 8        # column kernels: columns per block
+SMEM_LIMIT = 232448   # shared memory one block may use on an H100
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch of a step. `grid` and `cluster` are (x, y, z) in
+    blocks; x walks the output's 64-column tiles, y its 64-row tiles, z the
+    depth split. `cluster_axis` names what the cluster's blocks share:
+    "batch" (a column tile's rows, for the BN sums) or "depth" (one dW tile,
+    each block a slice of the batch). `smem_bytes` is the dynamic shared
+    memory of a block (the kernels' few KB of static exchange arrays come on
+    top; `preload_kernels` checks the sum on the device). `dims()` is what
+    the C entry launches with."""
+
+    kernel: str
+    rows: int
+    cols: int
+    depth: int
+    tile: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    cluster: tuple[int, int, int]
+    cluster_axis: str | None
+    stages: int
+    smem_bytes: int
+    bn_in_epilogue: bool = False
+
+    @property
+    def cluster_size(self) -> int:
+        return self.cluster[0] * self.cluster[1] * self.cluster[2]
+
+    def dims(self):
+        """The launch for a C entry: grid, cluster, dynamic bytes."""
+        return (ctypes.c_int * 7)(*self.grid, *self.cluster, self.smem_bytes)
+
+    def rank_rows(self) -> list[tuple[int, int]]:
+        """dW only: [row0, row1) of the 64-row tile that each depth rank sums
+        across the cluster and runs Adam on."""
+        own = _TILE // self.cluster[2]
+        return [(r * own, (r + 1) * own) for r in range(self.cluster[2])]
+
+    def rank_depth(self) -> list[tuple[int, int]]:
+        """dW only: the [k0, k1) slice of the depth each rank multiplies."""
+        per = self.depth // self.cluster[2]
+        return [(r * per, (r + 1) * per) for r in range(self.cluster[2])]
+
+
+def _dw_split(tiles: int, depth_tiles: int) -> int:
+    """Blocks along the depth for a dW product of `tiles` output tiles: the
+    smallest power of two (at most the cluster limit, dividing the depth
+    tiles) that brings the grid to 128 blocks."""
+    split = 1
+    while (split < _MAX_CLUSTER and tiles * split < 128
+           and depth_tiles % (2 * split) == 0):
+        split *= 2
+    return split
+
+
+def launch_plan(spec: FusedStepSpec) -> dict:
+    """The kernel launches of one step, decided from the spec alone (the
+    counterpart of ops/cuda_spectral.py::pi_plan for K3 and K6):
+
+      {"bn_in_epilogue": bool,
+       "fwd": [Launch per layer], "ce": Launch,
+       "dx": [None, Launch per layer 1..m-1], "dw": [Launch per layer],
+       "bn_fwd" / "bn_bwd": [Launch per hidden layer] (column form only)}
+
+    BN rides in the GEMM epilogues when the batch is 1, 2, 4 or 8 row tiles:
+    the blocks of a column tile then form one cluster along the batch. Any
+    other batch takes plain-epilogue GEMMs and the column kernels. A dW
+    launch also holds its block's rows of the master and both moments in
+    shared memory. Raises ValueError for a spec the kernels do not take."""
+    B, pd, m = spec.batch, spec.pdims, spec.n_layers
+    if spec.pallas_relu_mask:
+        raise ValueError("FusedStepSpec.pallas_relu_mask: K3 masks with "
+                         "the bf16 threshold only; the Pallas rule runs "
+                         "in the plain twin")
+    if B <= 0 or B % _TILE:
+        raise ValueError(f"fused kernels: batch must be a positive multiple "
+                         f"of {_TILE}, got {B}")
+    if pd[-1] > _CE_MAX_WIDTH:
+        raise ValueError(f"fused kernels: at most {_CE_MAX_WIDTH} padded "
+                         f"classes, got {pd[-1]}")
+    if any(d % _TILE for d in pd) or pd[-1] % _LANE:
+        raise ValueError(f"fused kernels: padded widths must be multiples "
+                         f"of {_TILE} and the class width of {_LANE}, got "
+                         f"{pd}")
+    row_tiles = B // _TILE
+    fused = row_tiles in (1, 2, 4, 8)
+    tile = (_TILE, _TILE, _TILE)
+
+    def gemm(kernel, rows, cols, depth, cluster=(1, 1, 1), axis=None,
+             extra=0, bn=False):
+        grid = (cols // _TILE, rows // _TILE, cluster[2])
+        return Launch(kernel, rows, cols, depth, tile, grid, cluster, axis,
+                      _STAGES, _RING_BYTES + extra, bn)
+
+    def column(kernel, rows, cols):
+        return Launch(kernel, rows, cols, 0, (rows, _COL_WIDTH, 0),
+                      (cols // _COL_WIDTH, 1, 1), (1, 1, 1), None, 0, 0)
+
+    along_batch = (1, row_tiles, 1)
+    fwd, dx, dw = [], [None], []
+    for i in range(m):
+        if i == m - 1:
+            fwd.append(gemm("logits", B, pd[i + 1], pd[i]))
+        elif fused:
+            fwd.append(gemm("fwd_bn", B, pd[i + 1], pd[i], along_batch,
+                            "batch", bn=True))
+        else:
+            fwd.append(gemm("gemm_fwd", B, pd[i + 1], pd[i]))
+        if i > 0:
+            dx.append(gemm("dx_bn", B, pd[i], pd[i + 1], along_batch, "batch",
+                           bn=True) if fused
+                      else gemm("gemm_dx", B, pd[i], pd[i + 1]))
+        split = _dw_split((pd[i] // _TILE) * (pd[i + 1] // _TILE), row_tiles)
+        dw.append(gemm("dw_adam", pd[i], pd[i + 1], B, (1, 1, split), "depth",
+                       extra=_STATE_BYTES))
+    ce = Launch("ce", B, pd[-1], 0, (_CE_ROWS, pd[-1], 0),
+                (B // _CE_ROWS, 1, 1), (1, 1, 1), None, 0, 0)
+    plan = {"bn_in_epilogue": fused, "fwd": fwd, "ce": ce, "dx": dx, "dw": dw,
+            "bn_fwd": [], "bn_bwd": []}
+    if not fused:
+        plan["bn_fwd"] = [column("bn_fwd", B, pd[i + 1]) for i in range(m - 1)]
+        plan["bn_bwd"] = [column("bn_bwd", B, pd[i + 1]) for i in range(m - 1)]
+    return plan
+
+
+def plan_launches(plan: dict) -> list[Launch]:
+    """Every launch of `plan` in step order (the projection and the
+    prologue aside)."""
+    m = len(plan["fwd"])
+    out = []
+    for i in range(m):
+        out.append(plan["fwd"][i])
+        if i < m - 1 and plan["bn_fwd"]:
+            out.append(plan["bn_fwd"][i])
+    out.append(plan["ce"])
+    for i in range(m - 1, -1, -1):
+        if i > 0:
+            out.append(plan["dx"][i])
+            if plan["bn_bwd"]:
+                out.append(plan["bn_bwd"][i - 1])
+        out.append(plan["dw"][i])
+    return out
+
+
 def _scratch(spec: FusedStepSpec, device) -> dict:
-    """Every buffer a step uses besides the state; reused by every step."""
+    """Every buffer a step uses besides the state; reused by every step.
+    `z` and `da` (fp32) are touched only where BN runs as separate kernels
+    (and by the twin); `dzb` alternates between two buffers because a
+    layer's dZ is still read by its dW product when the dZ of the layer
+    below is written."""
     B, pd, m, dmax = spec.batch, spec.pdims, spec.n_layers, spec.dmax
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -271,11 +441,14 @@ def _scratch(spec: FusedStepSpec, device) -> dict:
                   for i in range(m - 1)],
         "z": torch.empty(B * dmax, **f32),
         "da": torch.empty(B * dmax, **f32),
-        "dzb": torch.empty(B * dmax, dtype=_BF16, device=device),
+        "dzb": [torch.empty(B * dmax, dtype=_BF16, device=device)
+                for _ in range(2)],
         "muvec": torch.zeros((m, dmax), **f32),
         "sdvec": torch.zeros((m, dmax), **f32),
         "denom": torch.empty(1, **f32),
         "sigma": torch.empty(1, **f32),
+        "ce_part": torch.zeros(-(-B // _CE_ROWS) * (pd[-1] + 2), **f32),
+        "ce_ticket": torch.zeros(1, dtype=torch.int32, device=device),
     }
 
 
@@ -286,26 +459,43 @@ def _step(ops, spec, fs, sc, x, y, w, seeds, s, losses, accs):
     m, pd, B = spec.n_layers, spec.pdims, spec.batch
     sm = fs["small"]
     ops.prologue(x, w, sc["acts"][0], sc["denom"])
-    for i in range(m):
-        z = _view(sc["z"], B, pd[i + 1])
-        last = i == m - 1
-        ops.gemm_fwd(sc["acts"][i], fs["w16"][i], sm["b"][i], z,
-                     spec.cfg.n_classes if last else -1)
-        if not last:
-            ops.bn_fwd(i, z, w, sc["denom"], sm, sc["muvec"][i],
-                       sc["sdvec"][i], sc["xhats"][i], sc["acts"][i + 1],
-                       seeds, s)
-    ops.ce(z, y, w, sc["denom"], losses, accs, s, _view(sc["da"], B, pd[-1]))
+    for i in range(m - 1):
+        ops.hidden_fwd(i, sc["acts"][i], fs["w16"][i], sm, w, sc,
+                       sc["xhats"][i], sc["acts"][i + 1], seeds, s)
+    z = _view(sc["z"], B, pd[-1])
+    ops.gemm_fwd(m - 1, sc["acts"][m - 1], fs["w16"][m - 1], sm["b"][m - 1],
+                 z, spec.cfg.n_classes)
+    dzb = _view(sc["dzb"][(m - 1) % 2], B, pd[-1])
+    ops.ce_bwd(m - 1, z, y, w, sm, sc, losses, accs, s, dzb, fs["count"])
     for i in range(m - 1, -1, -1):
-        dzb = _view(sc["dzb"], B, pd[i + 1])
-        ops.bn_bwd(i, _view(sc["da"], B, pd[i + 1]),
-                   sc["xhats"][i] if i < m - 1 else None, w, sc["denom"], sm,
-                   sc["muvec"][i], sc["sdvec"][i], dzb, seeds, s, fs["count"])
         if i > 0:
-            ops.gemm_dx(dzb, fs["w16"][i], _view(sc["da"], B, pd[i]))
+            below = _view(sc["dzb"][(i - 1) % 2], B, pd[i])
+            ops.dx_bn_bwd(i - 1, dzb, fs["w16"][i], sc["xhats"][i - 1], w, sm,
+                          sc, below, seeds, s, fs["count"])
         ops.gemm_dw_adam(i, sc["acts"][i], dzb, fs, fs["count"], s)
+        if i > 0:
+            dzb = below
     if spec.rho is not None:
         ops.project(fs, sc)
+
+
+class _ComposedOps:
+    """The three fused operations of `_step` as compositions of the separate
+    ones, through the fp32 scratch `z` and `da`: what the twin computes, and
+    what the kernels launch where BN does not ride in a GEMM epilogue."""
+
+    def hidden_fwd(self, i, a16, w16, sm, w, sc, xhat, act_next, seeds, s):
+        z = _view(sc["z"], a16.shape[0], w16.shape[1])
+        self.gemm_fwd(i, a16, w16, sm["b"][i], z, -1)
+        self.bn_fwd(i, z, w, sc["denom"], sm, sc["muvec"][i], sc["sdvec"][i],
+                    xhat, act_next, seeds, s)
+
+    def dx_bn_bwd(self, i, dzb_up, w16_up, xhat, w, sm, sc, dzb, seeds, s,
+                  count):
+        da = _view(sc["da"], dzb.shape[0], dzb.shape[1])
+        self.gemm_dx(i + 1, dzb_up, w16_up, da)
+        self.bn_bwd(i, da, xhat, w, sc["denom"], sm, sc["muvec"][i],
+                    sc["sdvec"][i], dzb, seeds, s, count)
 
 
 def _epoch(ops, spec, fs, sc, xs, ys, ws, seeds, losses, accs):
@@ -321,7 +511,7 @@ def _epoch(ops, spec, fs, sc, xs, ys, ws, seeds, losses, accs):
         ops.cast_w16(fs["masters"][i], fs["w16"][i])
 
 
-class _PlainOps:
+class _PlainOps(_ComposedOps):
     """The step's operations in PyTorch, writing the same buffers."""
 
     def __init__(self, spec: FusedStepSpec):
@@ -349,6 +539,16 @@ class _PlainOps:
         sm["m_" + key][i, :d] = mn
         sm["v_" + key][i, :d] = vn
 
+    def colsum(self, t):
+        """Sum over the batch rows. A check may replace the order (the
+        kernels add 64-row blocks in rank order)."""
+        return torch.sum(t, 0)
+
+    def dw_product(self, i, acts, dzb):
+        """dW of layer i in fp32 from the bf16 operands. A check may replace
+        the order (the kernels add depth slices in rank order)."""
+        return acts.float().T @ dzb.float()
+
     def cast_w16(self, master, w16):
         w16.copy_(master.to(_BF16))
 
@@ -356,7 +556,7 @@ class _PlainOps:
         acts0.copy_(x.to(_BF16))
         denom.copy_((torch.sum(w) + 1e-9).reshape(1))
 
-    def gemm_fwd(self, a16, w16, bias_row, out, n_classes):
+    def gemm_fwd(self, i, a16, w16, bias_row, out, n_classes):
         d = out.shape[1]
         z = a16.float() @ w16.float() + bias_row[:d]
         if n_classes >= 0:
@@ -372,8 +572,8 @@ class _PlainOps:
         d = a.shape[1]
         if c.batch_norm:
             wc = w[:, None]
-            mu = torch.sum(a * wc, 0) / denom
-            var = torch.sum(((a - mu) ** 2) * wc, 0) / denom
+            mu = self.colsum(a * wc) / denom
+            var = self.colsum(((a - mu) ** 2) * wc) / denom
             sdinv = torch.rsqrt(var + c.bn_eps)
             muvec[:d] = mu
             sdvec[:d] = sdinv
@@ -407,6 +607,14 @@ class _PlainOps:
         accs[s] = torch.sum((pred == y).float() * w) / denom[0]
         dz.copy_((probs - onehot) * w[:, None] / denom)
 
+    def ce_bwd(self, i, logits, y, w, sm, sc, losses, accs, s, dzb, count):
+        """CCE and the output layer's backward: its dZ in bf16, Adam on its
+        bias."""
+        da = _view(sc["da"], logits.shape[0], logits.shape[1])
+        self.ce(logits, y, w, sc["denom"], losses, accs, s, da)
+        self.bn_bwd(i, da, None, w, sc["denom"], sm, sc["muvec"][i],
+                    sc["sdvec"][i], dzb, None, s, count)
+
     def bn_bwd(self, i, dD, xhat, w, denom, sm, muvec, sdvec, dzb, seeds, s,
                count):
         c = self.spec.cfg
@@ -421,8 +629,8 @@ class _PlainOps:
                 dD = torch.where(mask, dD / keep, 0.0)
             xh = xhat.float()
             if c.batch_norm:
-                dgamma = torch.sum(dD * xh, 0)
-                dbeta = torch.sum(dD, 0)
+                dgamma = self.colsum(dD * xh)
+                dbeta = self.colsum(dD)
                 dxh = dD * sm["gamma"][i, :d]  # gamma before its update
                 self._small_adam(sm, "gamma", i, dgamma, bc1, bc2)
                 self._small_adam(sm, "beta", i, dbeta, bc1, bc2)
@@ -437,17 +645,17 @@ class _PlainOps:
                 da = dD
                 relu = xh > 0.0
             dz = torch.where(relu, da, 0.0)
-        self._small_adam(sm, "b", i, torch.sum(dz, 0), bc1, bc2)
+        self._small_adam(sm, "b", i, self.colsum(dz), bc1, bc2)
         dzb.copy_(dz.to(_BF16))
 
-    @staticmethod
-    def bn_dx(dxh, xh, wd, sd):
+    def bn_dx(self, dxh, xh, wd, sd):
         """dL/da of the row-weighted BN from dL/dx^ (wd = w / denom)."""
-        s1 = torch.sum(dxh, 0, keepdim=True)
-        s2 = torch.sum(dxh * xh, 0, keepdim=True)
+        s1 = self.colsum(dxh)[None]
+        s2 = self.colsum(dxh * xh)[None]
         return sd * (dxh - wd * s1 - wd * xh * s2)
 
-    def gemm_dx(self, dzb, w16, out):
+    def gemm_dx(self, i, dzb, w16, out):
+        """dX of layer i's input from its dZ and its kernel."""
         out.copy_(dzb.float() @ w16.float().T)
 
     def load_master(self, fs, i):
@@ -455,7 +663,7 @@ class _PlainOps:
         return fs["masters"][i]
 
     def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
-        g = acts.float().T @ dzb.float()
+        g = self.dw_product(i, acts, dzb)
         bc1, bc2 = self._bc(count, s)
         wn, mn, vn = self._adam(self.load_master(fs, i), fs["mw"][i],
                                 fs["vw"][i], g, bc1, bc2)
@@ -492,20 +700,27 @@ class _PlainOps:
 def _lib():
     lib = load_library("fused_epoch")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    adam = ctypes.POINTER(_AdamArgs)
+    dims = ctypes.POINTER(ctypes.c_int)  # Launch.dims()
     sig = {
         "asr_fe_cast_bf16": [p, p, ctypes.c_longlong, p],
         "asr_fe_prologue": [p, p, p, p, i, i, p],
-        "asr_fe_gemm_fwd": [p, p, p, p, i, i, i, i, p],
-        "asr_fe_gemm_dx": [p, p, p, i, i, i, p],
-        "asr_fe_gemm_dw_adam": [p, p, p, p, p, p, i, i, i, p, i,
-                                ctypes.POINTER(_AdamArgs), i, p],
+        "asr_fe_gemm_fwd": [p, p, p, p, i, i, i, i, dims, p],
+        "asr_fe_gemm_dx": [p, p, p, i, i, i, dims, p],
+        "asr_fe_fwd_bn": [p] * 13 + [i, i, i, i, f, f, f, f, p, i, i, dims,
+                                     p],
+        "asr_fe_ce": [p, p, p, p, i, i, p, p, i, p, p, p, p, p, adam, dims,
+                      p],
+        "asr_fe_dx_bn": [p] * 9 + [i, i, i, i, f, p, i, i, p, adam, dims, p],
+        "asr_fe_gemm_dw_adam": [p, p, p, p, p, p, i, i, i, p, i, adam, i,
+                                dims, p],
         "asr_fe_bn_fwd": [p, i, i, p, p, p, p, p, p, p, p, p, p, i, f, f, f,
-                          f, p, i, i, p],
-        "asr_fe_ce": [p, p, p, p, i, i, p, p, i, p, p],
+                          f, p, i, i, dims, p],
         "asr_fe_bn_bwd": [i, p, i, i, p, p, p, p, p, p, p, f, p, i, i, p,
-                          ctypes.POINTER(_AdamArgs), p],
+                          adam, dims, p],
         "asr_fe_count_add": [p, i, p],
-        "asr_fe_preload": [],
+        "asr_fe_geometry": [dims],
+        "asr_fe_preload": [ctypes.POINTER(ctypes.c_int)],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)
@@ -520,17 +735,60 @@ def _check(name, rc):
                            f"error {rc}")
 
 
-class _CudaOps:
+def preload_kernels(lib, entry: str = "asr_fe_preload") -> int:
+    """Load a fused-kernel library's kernels and opt them in to their shared
+    memory, before a graph capture. Returns how many 8-block clusters of its
+    cluster kernels the device holds at once and raises if that is 0."""
+    n = ctypes.c_int(0)
+    _check("preload", getattr(lib, entry)(ctypes.byref(n)))
+    if entry == "asr_fe_preload":
+        kernel_geometry(lib)
+    if n.value < 1:
+        raise RuntimeError("the fused training kernels launch thread-block "
+                           "clusters of 8 blocks, and this device cannot "
+                           "schedule one")
+    return n.value
+
+
+def kernel_geometry(lib) -> dict:
+    """The constants of the built csrc/fused_epoch.cu and the static shared
+    memory of its kernels as loaded on the current device. Raises if the
+    plan's constants are not the library's, or if a block's dynamic and
+    static bytes together pass `SMEM_LIMIT`."""
+    out = (ctypes.c_int * 14)()
+    _check("geometry", lib.asr_fe_geometry(out))
+    built = tuple(out[:8])
+    mine = (_TILE, _STAGES, _CE_ROWS, _CE_MAX_WIDTH, _COL_WIDTH, _RING_BYTES,
+            _RING_BYTES + _STATE_BYTES, _THREADS)
+    if built != mine:
+        raise RuntimeError(f"launch_plan is written for the kernel geometry "
+                           f"{mine}, the built library has {built}")
+    static = dict(zip(("fwd_bn", "dx_bn", "dw_adam", "ce", "bn_fwd",
+                       "bn_bwd"), out[8:]))
+    dynamic = {"fwd_bn": _RING_BYTES, "dx_bn": _RING_BYTES,
+               "dw_adam": _RING_BYTES + _STATE_BYTES}
+    for k, v in static.items():
+        if v + dynamic.get(k, 0) > SMEM_LIMIT:
+            raise RuntimeError(f"{k}: {v} static + {dynamic.get(k, 0)} "
+                               f"dynamic bytes of shared memory a block")
+    return {"static_smem": static, "dynamic_smem": dynamic}
+
+
+_SMALL_ROWS = ("gamma", "m_gamma", "v_gamma", "beta", "m_beta", "v_beta",
+               "b", "m_b", "v_b")
+
+
+class _CudaOps(_ComposedOps):
     """The step's operations as launches of csrc/fused_epoch.cu's kernels
-    (and K2's for the projection) on the current stream."""
+    (and K2's for the projection) on the current stream, in the forms
+    `launch_plan(spec)` gives. `launched` counts the kernels enqueued: after
+    a capture, the graph's kernel nodes."""
 
     def __init__(self, spec: FusedStepSpec):
-        if spec.pallas_relu_mask:
-            raise ValueError("FusedStepSpec.pallas_relu_mask: K3 masks with "
-                             "the bf16 threshold only; the Pallas rule runs "
-                             "in the plain twin")
+        self.plan = launch_plan(spec)
         self.spec = spec
         self.lib = _lib()
+        self.launched = 0
         self.keeps = _keeps(spec)
         self.adam = _AdamArgs(**_adam_consts(spec))
         c = spec.cfg
@@ -541,73 +799,115 @@ class _CudaOps:
     def _stream():
         return torch.cuda.current_stream().cuda_stream
 
+    def _ran(self, name, rc):
+        _check(name, rc)
+        self.launched += 1
+
+    def _small_rows(self, sm, i, keys=_SMALL_ROWS):
+        return (ctypes.c_void_p * len(keys))(
+            *[sm[k][i].data_ptr() for k in keys])
+
     def cast_w16(self, master, w16):
-        _check("cast", self.lib.asr_fe_cast_bf16(
+        self._ran("cast", self.lib.asr_fe_cast_bf16(
             master.data_ptr(), w16.data_ptr(), master.numel(), self._stream()))
 
     def prologue(self, x, w, acts0, denom):
-        _check("prologue", self.lib.asr_fe_prologue(
+        self._ran("prologue", self.lib.asr_fe_prologue(
             x.data_ptr(), acts0.data_ptr(), w.data_ptr(), denom.data_ptr(),
             x.shape[0], x.shape[1], self._stream()))
 
-    def gemm_fwd(self, a16, w16, bias_row, out, n_classes):
+    def gemm_fwd(self, i, a16, w16, bias_row, out, n_classes):
         M, K = a16.shape
-        _check("gemm_fwd", self.lib.asr_fe_gemm_fwd(
+        self._ran("gemm_fwd", self.lib.asr_fe_gemm_fwd(
             a16.data_ptr(), w16.data_ptr(), bias_row.data_ptr(),
-            out.data_ptr(), M, w16.shape[1], K, n_classes, self._stream()))
+            out.data_ptr(), M, w16.shape[1], K, n_classes,
+            self.plan["fwd"][i].dims(), self._stream()))
+
+    def hidden_fwd(self, i, a16, w16, sm, w, sc, xhat, act_next, seeds, s):
+        if not self.plan["bn_in_epilogue"]:
+            return super().hidden_fwd(i, a16, w16, sm, w, sc, xhat, act_next,
+                                      seeds, s)
+        use_bn, eps, mom, omm = self.bn
+        M, K = a16.shape
+        self._ran("fwd_bn", self.lib.asr_fe_fwd_bn(
+            a16.data_ptr(), w16.data_ptr(), sm["b"][i].data_ptr(),
+            w.data_ptr(), sc["denom"].data_ptr(), sm["gamma"][i].data_ptr(),
+            sm["beta"][i].data_ptr(), sm["rmean"][i].data_ptr(),
+            sm["rvar"][i].data_ptr(), sc["muvec"][i].data_ptr(),
+            sc["sdvec"][i].data_ptr(), xhat.data_ptr(), act_next.data_ptr(),
+            M, w16.shape[1], K, use_bn, eps, mom, omm, self.keeps[i],
+            seeds.data_ptr(), s, i, self.plan["fwd"][i].dims(),
+            self._stream()))
 
     def bn_fwd(self, i, a, w, denom, sm, muvec, sdvec, xhat, act_next, seeds,
                s):
         use_bn, eps, mom, omm = self.bn
-        _check("bn_fwd", self.lib.asr_fe_bn_fwd(
+        self._ran("bn_fwd", self.lib.asr_fe_bn_fwd(
             a.data_ptr(), a.shape[0], a.shape[1], w.data_ptr(),
             denom.data_ptr(), sm["gamma"][i].data_ptr(),
             sm["beta"][i].data_ptr(), sm["rmean"][i].data_ptr(),
             sm["rvar"][i].data_ptr(), muvec.data_ptr(), sdvec.data_ptr(),
             xhat.data_ptr(), act_next.data_ptr(), use_bn, eps, mom, omm,
-            self.keeps[i], seeds.data_ptr(), s, i, self._stream()))
+            self.keeps[i], seeds.data_ptr(), s, i,
+            self.plan["bn_fwd"][i].dims(), self._stream()))
 
-    def ce(self, logits, y, w, denom, losses, accs, s, dz):
-        _check("ce", self.lib.asr_fe_ce(
-            logits.data_ptr(), y.data_ptr(), w.data_ptr(), denom.data_ptr(),
-            logits.shape[0], logits.shape[1], losses.data_ptr(),
-            accs.data_ptr(), s, dz.data_ptr(), self._stream()))
+    def ce_bwd(self, i, logits, y, w, sm, sc, losses, accs, s, dzb, count):
+        self._ran("ce", self.lib.asr_fe_ce(
+            logits.data_ptr(), y.data_ptr(), w.data_ptr(),
+            sc["denom"].data_ptr(), logits.shape[0], logits.shape[1],
+            losses.data_ptr(), accs.data_ptr(), s, dzb.data_ptr(),
+            sc["ce_part"].data_ptr(), sc["ce_ticket"].data_ptr(),
+            self._small_rows(sm, i, ("b", "m_b", "v_b")), count.data_ptr(),
+            ctypes.byref(self.adam), self.plan["ce"].dims(), self._stream()))
+
+    def dx_bn_bwd(self, i, dzb_up, w16_up, xhat, w, sm, sc, dzb, seeds, s,
+                  count):
+        if not self.plan["bn_in_epilogue"]:
+            return super().dx_bn_bwd(i, dzb_up, w16_up, xhat, w, sm, sc, dzb,
+                                     seeds, s, count)
+        self._ran("dx_bn", self.lib.asr_fe_dx_bn(
+            dzb_up.data_ptr(), w16_up.data_ptr(), xhat.data_ptr(),
+            w.data_ptr(), sc["denom"].data_ptr(), self._small_rows(sm, i),
+            sc["muvec"][i].data_ptr(), sc["sdvec"][i].data_ptr(),
+            dzb.data_ptr(), dzb_up.shape[0], w16_up.shape[0], w16_up.shape[1],
+            1 if self.spec.cfg.batch_norm else 2, self.keeps[i],
+            seeds.data_ptr(), s, i, count.data_ptr(),
+            ctypes.byref(self.adam), self.plan["dx"][i + 1].dims(),
+            self._stream()))
 
     def bn_bwd(self, i, dD, xhat, w, denom, sm, muvec, sdvec, dzb, seeds, s,
                count):
-        last = xhat is None
-        mode = 0 if last else (1 if self.spec.cfg.batch_norm else 2)
-        keys = ("gamma", "m_gamma", "v_gamma", "beta", "m_beta", "v_beta",
-                "b", "m_b", "v_b")
-        rows = (ctypes.c_void_p * 9)(*[sm[k][i].data_ptr() for k in keys])
-        _check("bn_bwd", self.lib.asr_fe_bn_bwd(
-            mode, dD.data_ptr(), dD.shape[0], dD.shape[1],
-            None if last else xhat.data_ptr(), w.data_ptr(), denom.data_ptr(),
-            rows, muvec.data_ptr(), sdvec.data_ptr(), dzb.data_ptr(),
-            1.0 if last else self.keeps[i], seeds.data_ptr(), s, i,
-            count.data_ptr(), ctypes.byref(self.adam), self._stream()))
+        self._ran("bn_bwd", self.lib.asr_fe_bn_bwd(
+            1 if self.spec.cfg.batch_norm else 2, dD.data_ptr(), dD.shape[0],
+            dD.shape[1], xhat.data_ptr(), w.data_ptr(), denom.data_ptr(),
+            self._small_rows(sm, i), muvec.data_ptr(), sdvec.data_ptr(),
+            dzb.data_ptr(), self.keeps[i], seeds.data_ptr(), s, i,
+            count.data_ptr(), ctypes.byref(self.adam),
+            self.plan["bn_bwd"][i].dims(), self._stream()))
 
-    def gemm_dx(self, dzb, w16, out):
-        _check("gemm_dx", self.lib.asr_fe_gemm_dx(
+    def gemm_dx(self, i, dzb, w16, out):
+        self._ran("gemm_dx", self.lib.asr_fe_gemm_dx(
             dzb.data_ptr(), w16.data_ptr(), out.data_ptr(), dzb.shape[0],
-            w16.shape[0], w16.shape[1], self._stream()))
+            w16.shape[0], w16.shape[1], self.plan["dx"][i].dims(),
+            self._stream()))
 
     def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
         K, M = acts.shape
-        _check("gemm_dw_adam", self.lib.asr_fe_gemm_dw_adam(
+        self._ran("gemm_dw_adam", self.lib.asr_fe_gemm_dw_adam(
             acts.data_ptr(), dzb.data_ptr(), fs["masters"][i].data_ptr(),
             fs["mw"][i].data_ptr(), fs["vw"][i].data_ptr(),
             fs["w16"][i].data_ptr(), M, dzb.shape[1], K, count.data_ptr(), s,
             ctypes.byref(self.adam), int(self.spec.cfg.nonneg),
-            self._stream()))
+            self.plan["dw"][i].dims(), self._stream()))
 
     def project(self, fs, sc):
         pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"],
                   self.spec.pi_iters, _EPS, rho=self.spec.rho,
                   masters=list(fs["masters"]))
+        self.launched += 1
 
     def count_add(self, count, n):
-        _check("count_add", self.lib.asr_fe_count_add(
+        self._ran("count_add", self.lib.asr_fe_count_add(
             count.data_ptr(), n, self._stream()))
 
 
@@ -662,13 +962,12 @@ def fused_epoch_plain(spec: FusedStepSpec, fstate: dict, xs, ys, ws, seeds,
 
 
 class _EpochGraph:
-    """Static buffers and the CUDA graph of one (spec, n_batches, device)."""
+    """Static buffers and the CUDA graph of one (spec, n_batches, device);
+    `kernel_nodes` is the number of kernels the graph holds."""
 
     def __init__(self, spec: FusedStepSpec, n_batches: int, device):
         B, pd = spec.batch, spec.pdims
-        if B % 64 or B <= 0:
-            raise ValueError(f"fused epoch on CUDA: batch must be a positive "
-                             f"multiple of 64, got {B}")
+        ops = _CudaOps(spec)  # the plan refuses what the kernels do not take
         self.spec = spec
         with torch.cuda.device(device):
             zeros = lambda t: torch.zeros_like(t, device=device)  # noqa: E731
@@ -683,14 +982,14 @@ class _EpochGraph:
             self.losses = torch.zeros(n_batches, device=device)
             self.accs = torch.zeros(n_batches, device=device)
             self.sc = _scratch(spec, device)
-            ops = _CudaOps(spec)
-            _check("preload", ops.lib.asr_fe_preload())
+            preload_kernels(ops.lib)
             preload()
             torch.cuda.synchronize(device)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 _epoch(ops, spec, self.fs, self.sc, self.xs, self.ys,
                        self.ws, self.seeds, self.losses, self.accs)
+            self.kernel_nodes = ops.launched
         self.device = device
 
     def run(self, fstate, xs, ys, ws, seeds):

@@ -6,10 +6,15 @@ One digit-recipe epoch (digit_constrained, 33 steps of 512 rows, the last
 with 182 true rows, seeded random features) as K3's CUDA graph:
 
   * ms per epoch by CUDA events at three projection settings (simple_norm
-    rho 0.1 with 16 and with 4 power-iteration rounds, and no projection);
+    rho 0.1 with 16 and with 4 power-iteration rounds, and no projection),
+    and of the recipe without BatchNorm (the fused kernels then skip their
+    exchanges across the cluster, which shows what those cost);
   * the graph replay alone against the whole call (state copied in and out);
   * device time by kernel family, from torch.profiler's key_averages() over
-    3 replays, with launches per epoch.
+    3 replays, with launches per epoch, and the graph's kernel nodes per
+    step;
+  * the launches of one step (the second) in order, with each one's device
+    time.
 
 Exits non-zero without a CUDA device. Prints the card's name and power
 limit, and as its last line the numbers as one JSON object.
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,14 +38,16 @@ STEPS, BATCH, TRUE_LAST = 33, 512, 182
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
-    ("EpiAdam", "dW GEMM + Adam + NonNeg + bf16 copy"),
-    ("EpiStore", "dX GEMM"),
-    ("EpiHidden", "forward GEMM"),
-    ("EpiLogits", "forward GEMM"),
+    ("fe_dw_adam", "dW GEMM + Adam + NonNeg + bf16 copy (cluster over depth)"),
+    ("fe_dx_bn", "dX GEMM + BN/ReLU/dropout backward + Adam of gamma, beta, b"),
+    ("fe_fwd_bn", "forward GEMM + bias + ReLU + BN + dropout"),
+    ("EpiLogits", "logits GEMM"),
+    ("EpiStore", "dX GEMM (separate-BN form)"),
+    ("EpiHidden", "forward GEMM (separate-BN form)"),
     ("pi_cluster", "K2 (one cluster launch per step: links, finish, rescale)"),
-    ("fe_bn_bwd", "BN backward (+ Adam of gamma, beta, b)"),
-    ("fe_bn_fwd", "BN forward"),
-    ("fe_ce", "softmax-CCE"),
+    ("fe_bn_bwd", "BN backward kernel (separate-BN form)"),
+    ("fe_bn_fwd", "BN forward kernel (separate-BN form)"),
+    ("fe_ce", "softmax-CCE + output layer's dZ, db, Adam of b"),
     ("fe_", "prologue, casts, count"),
 )
 
@@ -88,16 +96,19 @@ def main(argv=None) -> int:
 
     out = {"card": card, "epoch_ms": {}}
     runs = {}
-    for rho, n_iter in ((0.1, 16), (0.1, 4), (None, 16)):
-        spec = ct.FusedStepSpec(cfg=cfg, batch=BATCH, rho=rho,
-                                pi_iters=n_iter)
+    no_bn = dataclasses.replace(cfg, batch_norm=False)
+    for c, rho, n_iter in ((cfg, 0.1, 16), (cfg, 0.1, 4), (cfg, None, 16),
+                           (no_bn, 0.1, 16)):
+        spec = ct.FusedStepSpec(cfg=c, batch=BATCH, rho=rho, pi_iters=n_iter)
         fs = ct.pack_state(spec, params, state)
         run = ct.build_fused_epoch_call(spec, STEPS)
         key = "no projection" if rho is None else f"rho {rho}, {n_iter} rounds"
+        if c is no_bn:
+            key += ", no BatchNorm"
         out["epoch_ms"][key] = time_ms(
             lambda: run(fs, xs, ys, ws, seeds), args.reps)
         runs[key] = run
-    print(f"K3 ms/epoch by projection: {out['epoch_ms']}; card {card}",
+    print(f"K3 ms/epoch by setting: {out['epoch_ms']}; card {card}",
           flush=True)
 
     run = runs["rho 0.1, 16 rounds"]
@@ -127,6 +138,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     total = sum(ms.values())
+    # the casts before and after the steps and the count update aside
+    edge = 2 * spec0.n_layers + 1
+    out["graph_nodes_per_step"] = (sum(launches.values()) - edge) / STEPS
+    out["kernels_enqueued_at_capture"] = run.graphs[dev].kernel_nodes
     out["families"] = {f: {"ms": ms[f], "launches": launches[f],
                            "share": ms[f] / total}
                        for f in sorted(ms, key=lambda f: -ms[f])}
@@ -135,7 +150,21 @@ def main(argv=None) -> int:
         print(f"{v['ms']:9.3f} ms/epoch {v['launches']:7.0f} launches "
               f"{100 * v['share']:5.1f} %  {f}", flush=True)
     print(f"sum {total:.3f} ms/epoch vs replay {out['replay_ms']:.3f} ms; "
-          f"card {card}", flush=True)
+          f"{out['graph_nodes_per_step']:.1f} kernel nodes per step; card "
+          f"{card}", flush=True)
+    # one step's launches in order: the second step of the last replay
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    per_replay = len(events) // n
+    nodes = round(out["graph_nodes_per_step"])
+    first = len(events) - per_replay + spec0.n_layers + nodes
+    out["step_launches_us"] = []
+    for e in events[first: first + nodes]:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        dur = e.time_range.end - e.time_range.start
+        out["step_launches_us"].append([name[:40], dur])
+        print(f"{dur:8.1f} us  {name[:60]}", flush=True)
     print(json.dumps(out))
     return 0
 

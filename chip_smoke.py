@@ -42,10 +42,18 @@ which raises on failure (the exit code is then non-zero):
            and classifies WAV files;
   train    the training path. 16 566 + 2 048 + 1 024 seeded 1-s utterances
            (10 classes; the class sets pitch and timbre) made on the card,
-           featurized by K1 in chunks of 1024 and standardized. K3
+           featurized by K1 in chunks of 1024 and standardized. Every
+           kernel of a K3 step (fused forward with BN, logits, CCE, dX with
+           the BN backward, dW + Adam, K2, and K6's dW with the deferred
+           factor folded) against the matching `_PlainOps` method, one
+           launch at a time on one step's buffers with rows of weight 0:
+           BN in the GEMM epilogues (batch 512, with and without BN) and
+           as separate kernels (batch 1024). K3
            (`build_fused_epoch_call`) against its twin `fused_epoch_plain`
            over one full-width 33-step epoch of that split, at dropout 0
-           and at the recipe's dropout (the shared hash), at the parity bars
+           and at the recipe's dropout (the shared hash), two replays
+           bit-equal, and over a short epoch in the separate-BN form, at the
+           parity bars
            and at a bar on the Adam moments that must pass the twin in
            another summation order and fail a planted fault; then
            `epoch_parity_vs_plain` must pass. A device-resident Trainer.fit of digit_constrained (batch
@@ -808,13 +816,232 @@ def moment_err(f1, f2) -> float:
                if float(b.norm()) > 0)
 
 
+COMPARE_BAR = 1e-2   # per-kernel compares: max |kernel - twin| / max |twin|
+FLIP_SHARE = 1e-3    # ... and the share of Adam updates that may flip
+
+
+def update_err(old, new_k, new_t, m_old, m_new, lr, b1=0.9):
+    """One Adam update of a parameter, kernel against twin, as a number to
+    hold under `COMPARE_BAR`. Both start from `old`; the twin's gradient is
+    read back from its first moment (`m_new = b1 m_old + (1 - b1) g`).
+
+    The update is lr * m^ / (sqrt(v^) + eps): where the two gradients differ
+    by fp32 summation order alone it agrees to a few 1e-6 of itself, except
+    at a gradient within rounding of zero, where its sign (a whole +-lr step)
+    is rounding noise. So every entry's update must be within 1 % of the
+    twin's (+ 1e-3 lr), except entries whose twin gradient is under 1e-4 of
+    the tensor's largest: those may differ by up to 2.5 lr, and at most
+    `FLIP_SHARE` of the tensor may do so. A kernel that writes no update, one
+    of the wrong sign or size, or a wrong NonNeg clamp fails at every entry
+    with a real gradient. Returns (err, note)."""
+    old, new_k, new_t = old.float(), new_k.float(), new_t.float()
+    du_k, du_t = new_k - old, new_t - old
+    g = (m_new.float() - b1 * m_old.float()) / (1.0 - b1)
+    dev = (du_k - du_t).abs()
+    off = dev > 1e-2 * du_t.abs() + 1e-3 * lr
+    tiny = g.abs() <= 1e-4 * g.abs().max()
+    wrong = off & ~tiny
+    if bool(wrong.any()):
+        at = int(dev.masked_fill(~wrong, 0).argmax())
+        return float("inf"), (
+            f"{int(wrong.sum())} updates off the twin's at a real gradient, "
+            f"e.g. flat index {at}: {float(du_k.flatten()[at]):.3e} vs "
+            f"{float(du_t.flatten()[at]):.3e}, g {float(g.flatten()[at]):.3e}")
+    share = float(off.float().mean())
+    worst = float(dev.masked_fill(~off, 0).max())
+    err = COMPARE_BAR * max(share / FLIP_SHARE, worst / (2.5 * lr))
+    return err, f"{int(off.sum())} flips, the largest {worst:.2e}"
+
+
+def kernel_compare(dev, spec, what, seed=SEED + 40, zero_rows=37):
+    """Every kernel of one K3 step against the matching `_PlainOps` method,
+    one launch at a time, on one step's real buffers: the twin runs the step
+    and its state and scratch are kept after every operation; then the
+    kernels run the same step, each operation starting from the twin's
+    buffers as the previous operation left them, and every buffer is held
+    to the twin's after it. So a fault names its kernel. The last
+    `zero_rows` rows of the batch carry weight 0 and poison features. Then
+    K6's dW + Adam with the deferred factors folded at the load.
+
+    Bar: `COMPARE_BAR` relative to the tensor's largest entry (a bf16
+    rounding flip is 4e-3 of it; fp32 sums in another order 1e-6). A
+    parameter that Adam moves is held by its update instead (`update_err`),
+    and its bf16 copy must be the cast of the kernel's own new master, bit
+    for bit."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_step as k6
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, pd = spec.batch, spec.pdims
+    params, state = init_mlp(spec.cfg, gen, device=dev)
+    fs0 = ct.pack_state(spec, params, state)
+    for k in ("gamma", "beta", "rmean"):  # off their init, so each matters
+        fs0["small"][k] += 0.1 * torch.randn(fs0["small"][k].shape,
+                                             generator=gen, device=dev)
+    x = torch.zeros((B, pd[0]), device=dev)
+    x[:, :spec.dims[0]] = torch.randn((B, spec.dims[0]), generator=gen,
+                                      device=dev)
+    y = torch.randint(0, spec.cfg.n_classes, (B,), generator=gen, device=dev)
+    w = torch.ones(B, device=dev)
+    if zero_rows:
+        w[-zero_rows:] = 0.0
+        x[-zero_rows:, :spec.dims[0]] = 1e3
+    seeds = torch.tensor([123456789], dtype=torch.int32, device=dev)
+    fs0["count"] += 5  # not the first Adam step: both bias corrections move
+
+    def fresh():
+        fs = ct._state_map(lambda t: t.clone(), fs0)
+        sc = ct._scratch(spec, dev)
+        for v in sc.values():
+            for t in (v if isinstance(v, list) else [v]):
+                t.zero_()
+        return fs, sc, torch.zeros(1, device=dev), torch.zeros(1, device=dev)
+
+    skip = {"ce_part", "ce_ticket", "sigma"}  # scratch the twin never writes
+    if ct.launch_plan(spec)["bn_in_epilogue"]:
+        skip |= {"z", "da"}  # fp32 intermediates the fused kernels never write
+
+    def leaves(fs, sc, loss, acc):
+        out = {}
+        for k in ("masters", "w16", "mw", "vw"):
+            out.update({f"{k}[{i}]": t for i, t in enumerate(fs[k])})
+        out.update({f"small.{k}": t for k, t in fs["small"].items()})
+        out.update(u=fs["u"], count=fs["count"], loss=loss, acc=acc)
+        for k, v in sc.items():
+            if k in skip:
+                continue
+            if isinstance(v, list):
+                out.update({f"{k}[{i}]": t for i, t in enumerate(v)})
+            else:
+                out[k] = v
+        return out
+
+    class Recorder:
+        """Runs `ops` and hands every call to `hook(name, call)`."""
+
+        def __init__(self, ops, hook):
+            self.ops, self.hook = ops, hook
+
+        def __getattr__(self, name):
+            fn = getattr(self.ops, name)
+            return lambda *a: self.hook(name, lambda: fn(*a))
+
+    snaps, names = [], []
+    fsP, scP, lossP, accP = fresh()
+    bufP = leaves(fsP, scP, lossP, accP)
+
+    def keep(name, call):
+        call()
+        names.append(name)
+        snaps.append({k: t.clone() for k, t in bufP.items()})
+
+    with torch.no_grad():
+        ct._step(Recorder(ct._PlainOps(spec), keep), spec, fsP, scP, x,
+                 y.long(), w, seeds, 0, lossP, accP)
+
+    fsC, scC, lossC, accC = fresh()
+    bufC = leaves(fsC, scC, lossC, accC)
+    start = {k: t.clone() for k, t in bufC.items()}
+    lr, worst, at = spec.lr, {}, [0]
+    moment_of = {f"masters[{i}]": f"mw[{i}]" for i in range(spec.n_layers)}
+    moment_of.update({f"small.{k}": f"small.m_{k}"
+                      for k in ("b", "gamma", "beta")})
+    adam_ops = ("ce_bwd", "dx_bn_bwd", "bn_bwd", "gemm_dw_adam")
+
+    def held(name, call):
+        k = at[0]
+        check(names[k] == name, f"kernel compare: step programs differ at "
+              f"{k}: {names[k]} vs {name}")
+        before = snaps[k - 1] if k else start
+        for key, t in bufC.items():
+            t.copy_(before[key])
+        call()
+        torch.cuda.synchronize()
+        err, where = 0.0, ""
+        for key, t in bufC.items():
+            if name == "ce_bwd" and key == "da":
+                continue  # the twin's fp32 dz; the kernel writes bf16 only
+            ref = snaps[k][key].float()
+            if name in adam_ops and key in moment_of:
+                mom = moment_of[key]
+                rel, note = update_err(before[key], t, ref, before[mom],
+                                       snaps[k][mom], lr)
+                key = f"{key}: {note}"
+            elif name == "gemm_dw_adam" and key.startswith("w16"):
+                own = bufC[key.replace("w16", "masters")].to(torch.bfloat16)
+                rel = 0.0 if torch.equal(t, own) else float("inf")
+                key += ": not the cast of its master"
+            else:
+                d = float((t.float() - ref).abs().max())
+                rel = d / (float(ref.abs().max()) + 1e-30)
+            if not (torch.isfinite(t.float()).all()
+                    and torch.isfinite(ref).all()):
+                rel = float("inf")
+            if rel > err:
+                err, where = rel, key
+        tag = f"{k:02d} {name}"
+        worst[tag] = (err, where)
+        at[0] += 1
+
+    cuda_ops = ct._CudaOps(spec)
+    ct.preload_kernels(cuda_ops.lib)
+    ct.preload()
+    ct._step(Recorder(cuda_ops, held), spec, fsC, scC, x,
+             y.to(torch.int32), w, seeds, 0, lossC, accC)
+    check(at[0] == len(names), "kernel compare: fewer kernel operations")
+
+    # K6's fold: dW + Adam from masters that carry deferred factors
+    m = spec.n_layers
+    step_ops = k6._CudaStepOps(spec)
+    ct.preload_kernels(step_ops.slib, "asr_fs_preload")
+    scales = 0.5 + torch.rand((1, 128), generator=gen, device=dev)
+    i = m - 2  # a narrow layer: its dW launch is split over a cluster
+    acts = snaps[-1][f"acts[{i}]"]
+    dzb = snaps[-1][f"dzb[{i % 2}]"][:B * pd[i + 1]].view(B, pd[i + 1])
+    fold = []
+    for ops in (k6._PlainStepOps(spec), step_ops):
+        fs = ct._state_map(lambda t: t.clone(), fs0)
+        fs["scales"] = scales.clone()
+        ops.gemm_dw_adam(i, acts, dzb, fs, fs["count"], 0)
+        torch.cuda.synchronize()
+        fold.append(fs)
+    err, where = update_err(
+        fs0["masters"][i] * scales[0, i], fold[1]["masters"][i],
+        fold[0]["masters"][i], fs0["mw"][i], fold[0]["mw"][i], lr)
+    where = f"masters: {where}"
+    for key in ("mw", "vw"):
+        a, b = fold[1][key][i], fold[0][key][i]
+        rel = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+        if rel > err:
+            err, where = rel, key
+    if not torch.equal(fold[1]["w16"][i],
+                       fold[1]["masters"][i].to(torch.bfloat16)):
+        err, where = float("inf"), "w16: not the cast of its master"
+    worst[f"K6 dw_adam fold layer {i}"] = (err, where)
+    print(f"kernel compare {what} (batch {B}, {zero_rows} rows of weight 0, "
+          f"BN in the epilogues: {ct.launch_plan(spec)['bn_in_epilogue']}), "
+          f"rel err of the worst buffer after each launch, bar "
+          f"{COMPARE_BAR}: "
+          + "; ".join(f"{k} {e:.2e} ({wh})" for k, (e, wh) in worst.items()),
+          flush=True)
+    for k, (e, wh) in worst.items():
+        check(e < COMPARE_BAR, f"kernel compare {what}: {k} off its twin by "
+              f"{e:.3e} at {wh}")
+    return {k: e for k, (e, _) in worst.items()}
+
+
 def k3_phase(dev, split, batch=512):
-    """K3 against its twin over one full-width epoch of the training split
-    (standardized K1 features) from one packed state, at dropout 0 and at
-    the recipe's dropout; at dropout 0 also the moment bar's two readings
-    (the twin in another summation order, and a planted fault); then the
-    parity check the trainer runs. Returns the errors and the inputs for
-    the timing phase."""
+    """Every kernel of a step against its `_PlainOps` method (BN in the GEMM
+    epilogues at batch 512, with and without BN; BN as separate kernels at
+    batch 1024); then K3 against its twin over one full-width epoch of the
+    training split (standardized K1 features, the last batch padded with
+    rows of weight 0) from one packed state, at dropout 0 and at the
+    recipe's dropout, two replays bit-equal; at dropout 0 also the moment
+    bar's two readings (the twin in another summation order, and a planted
+    fault); a short epoch in the separate-BN form; then the parity check the
+    trainer runs. Returns the errors and the inputs for the timing phase."""
     import dataclasses
 
     import torch
@@ -827,7 +1054,7 @@ def k3_phase(dev, split, batch=512):
         """The twin with dX summed in two halves: the same math in another
         fp32 order."""
 
-        def gemm_dx(self, dzb, w16, out):
+        def gemm_dx(self, i, dzb, w16, out):
             h = w16.shape[1] // 2
             out.copy_(dzb[:, :h].float() @ w16[:, :h].float().T
                       + dzb[:, h:].float() @ w16[:, h:].float().T)
@@ -849,6 +1076,19 @@ def k3_phase(dev, split, batch=512):
     steps = data.shape[0] // batch
     out = {"max_abs_err": 0.0}
     zero = (0.0,) * len(cfg.dropout)
+    recipe = dict(rho=0.1, pi_iters=16)
+    out["kernel_compare"] = {
+        "epilogue_bn": kernel_compare(
+            dev, ct.FusedStepSpec(cfg=cfg, batch=batch, **recipe),
+            "digit recipe"),
+        "epilogue_no_bn": kernel_compare(
+            dev, ct.FusedStepSpec(
+                cfg=dataclasses.replace(cfg, batch_norm=False),
+                batch=batch // 2, **recipe), "digit recipe without BN"),
+        "separate_bn": kernel_compare(
+            dev, ct.FusedStepSpec(cfg=cfg, batch=2 * batch, **recipe),
+            "digit recipe, separate-BN form"),
+    }
     for drop in (zero, cfg.dropout):
         spec = ct.FusedStepSpec(cfg=dataclasses.replace(cfg, dropout=drop),
                                 batch=batch, rho=0.1, pi_iters=16)
@@ -865,6 +1105,14 @@ def k3_phase(dev, split, batch=512):
         run = ct.build_fused_epoch_call(spec, steps)
         f1, l1, a1 = run(*args)
         torch.cuda.synchronize()
+        f1b, l1b, a1b = run(*args)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(a, b) for a, b in zip(
+            ct._state_leaves(f1), ct._state_leaves(f1b)))
+            and torch.equal(l1, l1b) and torch.equal(a1, a1b))
+        check(same, f"two replays of K3's graph differ (dropout {drop[0]})")
+        pad_rows = int((ws == 0).sum())
+        check(pad_rows > 0, "the K3 epoch has no rows of weight 0")
         f2, l2, a2 = ct.fused_epoch_plain(spec, *args)
         (p1, s1), (p2, s2) = ct.unpack_params(spec, f1), ct.unpack_params(
             spec, f2)
@@ -897,7 +1145,8 @@ def k3_phase(dev, split, batch=512):
              "moments_rel": moment_err(f1, f2),
              "count": (int(f1["count"][0]), int(f2["count"][0]))}
         what = f"dropout {drop[0]}"
-        print(f"kernel K3 digit {steps} steps {what}: "
+        print(f"kernel K3 digit {steps} steps {what} ({pad_rows} rows of "
+              f"weight 0 in the last batch; two replays bit-equal): "
               + ", ".join(f"{k} {v:.3e}" if isinstance(v, float)
                           else f"{k} {v}" for k, v in d.items())
               + f"; loss first/last {float(l1[0]):.4f}/{float(l1[-1]):.4f} "
@@ -934,6 +1183,39 @@ def k3_phase(dev, split, batch=512):
     # time the recipe: its dropout
     out["timing_args"] = (spec, run, args, data, labels, n_rows, params,
                           state)
+    # the separate-BN form (a batch of 16 row tiles) over a short epoch
+    wide = ct.FusedStepSpec(cfg=cfg, batch=2 * batch, **recipe)
+    check(not ct.launch_plan(wide)["bn_in_epilogue"]
+          and ct.launch_plan(spec)["bn_in_epilogue"],
+          "the two BN forms are not both exercised")
+    n_wide = 4
+    xw, yw, ww = shuffle_batches(
+        ct.pad_features(wide, data[: n_wide * wide.batch]),
+        labels[: n_wide * wide.batch], wide.batch, True,
+        torch.Generator(device=dev).manual_seed(SEED + 32),
+        n_wide * wide.batch - 100)
+    wargs = (ct.pack_state(wide, params, state), xw, yw[:, :, None],
+             ww[:, :, None], seeds[:n_wide])
+    g1, gl1, _ = ct.build_fused_epoch_call(wide, n_wide)(*wargs)
+    torch.cuda.synchronize()
+    g2, gl2, _ = ct.fused_epoch_plain(wide, *wargs)
+    (q1, t1), (q2, t2) = ct.unpack_params(wide, g1), ct.unpack_params(wide, g2)
+    wd = {"dw": max(float((a["w"] - b["w"]).abs().max())
+                    for a, b in zip(q1["layers"], q2["layers"])),
+          "dmu": float((t1["layers"][0]["mean"]
+                        - t2["layers"][0]["mean"]).abs().max()),
+          "dloss_any_step": float((gl1 - gl2).abs().max()),
+          "moments_rel": moment_err(g1, g2)}
+    wbars = ct.parity_bars(n_wide)
+    print(f"kernel K3 separate-BN form, {n_wide} steps of {wide.batch} (100 "
+          f"rows of weight 0): " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                             wd.items())
+          + f"; bars {wbars}, moments {MOMENT_BAR}", flush=True)
+    check(wd["dw"] < wbars["param"] and wd["dmu"] < wbars["bn_mean"]
+          and wd["dloss_any_step"] < wbars["loss"]
+          and wd["moments_rel"] < MOMENT_BAR,
+          "K3 in the separate-BN form is off the twin")
+    out["separate_bn_epoch"] = wd
     gate = ct.epoch_parity_vs_plain(cfg, batch, data, labels, n_rows)
     print(f"kernel K3 epoch_parity_vs_plain: {gate}", flush=True)
     check(gate["ok"], "epoch_parity_vs_plain failed")
@@ -992,6 +1274,12 @@ def k6_phase(dev, k3_args):
             a = (fs, xs[:n], ys[:n], ws[:n], seeds[:n])
             f1, l1, a1 = step.chain(*a)
             torch.cuda.synchronize()
+            f1b, l1b, _ = step.chain(*a)
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(
+                ct._state_leaves(f1), ct._state_leaves(f1b)))
+                and torch.equal(l1, l1b),
+                f"two chains of K6 replays differ ({n} steps)")
             f2, l2, a2 = k6.fused_steps_plain(spec, *a)
             (p1, s1), (p2, s2) = (ct.unpack_params(spec, f1),
                                   ct.unpack_params(spec, f2))
@@ -1405,11 +1693,12 @@ def train_phase(dev, split, epochs=40, batch=512, epoch_backend="auto"):
     check(sigma <= 1.5 * rho, f"product norm {sigma} above 1.5 rho")
 
     _, res_pl, sec_pl = fit("plain")
-    acc_k3, acc_pl = h["val_acc"][-1], res_pl["history"]["val_acc"][-1]
-    print(f"train resident plain epoch: {sec_pl:.2f} s, loss "
+    acc_pl = res_pl["history"]["val_acc"][-1]
+    print(f"train resident plain epoch: {res_pl['epochs_run']} epochs in "
+          f"{sec_pl:.2f} s, loss "
           f"{[round(v, 4) for v in res_pl['history']['loss']]}, val_acc "
-          f"{acc_pl:.4f} vs K3 {acc_k3:.4f}", flush=True)
-    check(abs(acc_pl - acc_k3) < 0.15, "K3 and plain fits disagree")
+          f"{acc_pl:.4f} vs K3 {h['val_acc'][-1]:.4f}", flush=True)
+    check(abs(acc_pl - h["val_acc"][-1]) < 0.15, "K3 and plain fits disagree")
 
     product_spectral_norm_cuda.launches = 0  # the streaming fit starts here
     _, res_s, sec_s = fit("auto", resident=False, n_epochs=1)
@@ -1436,7 +1725,8 @@ def train_phase(dev, split, epochs=40, batch=512, epoch_backend="auto"):
           and bool(torch.isfinite(adv).all()), "evaluate/FGSM output")
     check(adv_acc <= acc + 0.01, "FGSM raised the accuracy")
     return {"k2_launches": k2, "k3_launches": k3,
-            "loss": h["loss"], "val_acc": acc_k3, "plain_val_acc": acc_pl,
+            "loss": h["loss"], "val_acc": h["val_acc"][-1],
+            "plain_val_acc": acc_pl,
             "test_acc": acc, "fgsm_acc": adv_acc, "product_norm": sigma,
             "fit_s": sec, "plain_fit_s": sec_pl, "streaming_fit_s": sec_s}
 
@@ -1894,6 +2184,7 @@ def train_timing_phase(dev, k3_args, reps=5):
         make_simple_norm_constraint)
     from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
         product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
     from asr_using_robust_nn_tpu_torch.ops.cuda_train import fused_epoch_plain
     from asr_using_robust_nn_tpu_torch.ops.spectral import (
         product_spectral_norm_with_state)
@@ -1903,10 +2194,10 @@ def train_timing_phase(dev, k3_args, reps=5):
     card = card_line()
     out = {}
 
-    def paired(k, p):
+    def paired(k, p, p_reps=reps):
         k(), p()
-        t = [time_ms(p, reps), time_ms(k, reps), time_ms(k, reps),
-             time_ms(p, reps)]
+        t = [time_ms(p, p_reps), time_ms(k, reps), time_ms(k, reps),
+             time_ms(p, p_reps)]
         return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
     eps = float(np.spacing(1.0))
@@ -1927,17 +2218,28 @@ def train_timing_phase(dev, k3_args, reps=5):
     spec, run, args, data, labels, n_true, params, state = k3_args
     steps = args[1].shape[0]
     k_ms, p_ms, t = paired(lambda: run(*args),
-                           lambda: fused_epoch_plain(spec, *args))
+                           lambda: fused_epoch_plain(spec, *args), p_reps=1)
     flop = step_flop(spec.batch) * steps
     tflops = flop / k_ms / 1e9
     check(tflops < H100_BF16_DENSE_TFLOPS, f"K3 at {tflops} TFLOP/s is "
           f"above the H100's dense bf16 peak: a timing error")
     out["k3"] = {"ms": k_ms, "plain_ms": p_ms, "runs_ms": t,
                  "gflop": flop / 1e9, "tflops": tflops}
+    nodes = float("nan")  # a CPU rehearsal has no graph
+    if dev.type == "cuda":
+        # the casts around the steps and the count update aside
+        edge = 2 * spec.n_layers + 1
+        nodes = (run.graphs[dev].kernel_nodes - edge) / steps
+        out["k3"]["graph_nodes_per_step"] = nodes
+        # the plan's launches, the prologue and K2
+        planned = len(ct.plan_launches(ct.launch_plan(spec))) + 2
+        check(nodes == planned, f"K3's graph runs {nodes} kernels a step, "
+              f"its launch plan says {planned}")
     print(f"time K3 digit epoch ({steps} steps of {spec.batch}, dropout "
           f"{spec.cfg.dropout[0]}): kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms "
           f"(runs p,k,k,p {[round(x, 3) for x in t]}); {flop / 1e9:.1f} GFLOP"
-          f" -> {tflops:.2f} TFLOP/s; card {card}", flush=True)
+          f" -> {tflops:.2f} TFLOP/s; {nodes:.1f} kernel nodes per step; "
+          f"card {card}", flush=True)
     con = make_simple_norm_constraint(spec.rho, n_iter=spec.pi_iters)
     opt = adam_optimizer(spec.lr)
     for name, cfg in (("fp32", spec.cfg), ("bf16", spec.cfg.with_bf16())):
@@ -1950,7 +2252,7 @@ def train_timing_phase(dev, k3_args, reps=5):
                       n_true)
 
         plain()
-        ms = (time_ms(plain, reps) + time_ms(plain, reps)) / 2
+        ms = time_ms(plain, 2)
         out[f"epoch_program_{name}"] = {"ms": ms}
         print(f"time plain epoch (epoch_program, autograd, {name} GEMMs, "
               f"projection by K2, dropout on): {ms:.3f} ms vs K3 {k_ms:.3f} "
@@ -1980,11 +2282,16 @@ def step_timing_phase(dev, k6_args, mrun_args, k3_epoch_ms, reps=5):
     one = (fs, xs[0], ys[0], ws[0], seeds[0])
     call_ms, twin_ms, t = paired_ms(
         lambda: step(*one), lambda: k6.fused_step_plain(spec, *one), reps)
-    replay_ms = float("nan")  # a CPU rehearsal has no graph
+    replay_ms = nodes = float("nan")  # a CPU rehearsal has no graph
     if dev.type == "cuda":
         graph = step.graphs[dev]
         graph.load(fs)
         replay_ms = time_ms(graph.graph.replay, 10 * reps)
+        nodes = graph.kernel_nodes
+        # the plan's launches, the prologue, K2, the rescale and the count
+        planned = len(ct.plan_launches(ct.launch_plan(spec))) + 4
+        check(nodes == planned, f"K6's graph runs {nodes} kernels, its "
+              f"launch plan says {planned}")
     chain = lambda: step.chain(fs, xs, ys, ws, seeds)  # noqa: E731
     chain()
     chain_ms = (time_ms(chain, reps) + time_ms(chain, reps)) / 2 / steps
@@ -2018,9 +2325,11 @@ def step_timing_phase(dev, k6_args, mrun_args, k3_epoch_ms, reps=5):
            "k3_step_ms": k3_epoch_ms / steps, "train_step_ms": auto_ms,
            "scan_epoch_ms": scan_ms, "k3_epoch_fn_ms": grid_ms,
            "bound_ms": b_ms, "bound_by": b_by, "state_mb": tree_bytes(fs) / 1e6,
-           "gflop": step_flop(spec.batch) / 1e9}
+           "gflop": step_flop(spec.batch) / 1e9, "graph_nodes_per_step": nodes,
+           "tflops": step_flop(spec.batch) / replay_ms / 1e9}
     print(f"time K6 digit step (batch {spec.batch}, dropout "
-          f"{spec.cfg.dropout[0]}): graph replay {replay_ms:.3f} ms, whole "
+          f"{spec.cfg.dropout[0]}): graph replay {replay_ms:.3f} ms "
+          f"({nodes} kernel nodes, {out['tflops']:.2f} TFLOP/s), whole "
           f"step call {call_ms:.3f} ms (state copied in and cloned out), "
           f"chain of {steps} {chain_ms:.3f} ms/step, twin {twin_ms:.3f} ms "
           f"(runs p,k,k,p {[round(x, 3) for x in t]}); K3 {k3_epoch_ms:.3f} "
@@ -2050,7 +2359,7 @@ def step_timing_phase(dev, k6_args, mrun_args, k3_epoch_ms, reps=5):
         *st[:4], x_plain, lab, mr.fold_runs(st[4], 0, dev),
         mr.fold_runs(st[5], 0, dev), None, None, n_true)
     run_plain()
-    p_ms = time_ms(run_plain, 2) / n_runs
+    p_ms = time_ms(run_plain, 1) / n_runs
     out.update(multi_run_fused_ms=f_ms, multi_run_plain_ms=p_ms)
     print(f"time multi-run epoch, {n_runs} runs, ms per run per epoch: fused "
           f"(K3, state sliced in and copied back) {f_ms:.3f}, plain (loop of "
@@ -2137,11 +2446,13 @@ def rfft_chain(waves, cfg):
     return (spec.abs() ** 2) @ device_constants(cfg, waves.device)[2]
 
 
-def paired_ms(k, p, reps):
-    """plain, kernel, kernel, plain after one warm call each."""
+def paired_ms(k, p, reps, p_reps=None):
+    """plain, kernel, kernel, plain after one warm call each; `p_reps`:
+    fewer repetitions of a slow plain side."""
     k(), p()
-    t = [time_ms(p, reps), time_ms(k, reps), time_ms(k, reps),
-         time_ms(p, reps)]
+    p_reps = p_reps or reps
+    t = [time_ms(p, p_reps), time_ms(k, reps), time_ms(k, reps),
+         time_ms(p, p_reps)]
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
@@ -2170,7 +2481,7 @@ def frontend_timing_phase(dev, prep, batch=1024, reps=3):
         for b in sizes:
             w = torch.from_numpy(synth_waves(b, seed=7)).to(dev)
             k_ms, p_ms, t = paired_ms(lambda: kernel(w, cfg),
-                                      lambda: plain(w, cfg), reps)
+                                      lambda: plain(w, cfg), reps, p_reps=1)
             k1_ms, pl_ms, _ = paired_ms(lambda: mel_power_cuda(w, cfg),
                                         lambda: mel_power_plain(w, cfg), reps)
             rfft_chain(w, cfg)
@@ -2269,10 +2580,35 @@ def library_phase(dev, k3_args, reps=5):
             "k3": {"bound_ms": k3_bound[0], "bound_by": k3_bound[1]}}
 
 
+def sass_census(name):
+    """How many warpgroup MMAs (HGMMA), asynchronous global-to-shared copies
+    (LDGSTS: cp.async) and warp-level MMAs (HMMA: mma.sync / WMMA) the
+    compiled `csrc/<name>.cu` holds, by the cuobjdump that ships beside
+    nvcc (or the one on the PATH); raises without it."""
+    import shutil
+
+    from asr_using_robust_nn_tpu_torch.ops._build import _library_path, _nvcc
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found beside nvcc nor on the PATH: "
+                           "the SASS of the fused kernels cannot be checked")
+    sass = subprocess.run([tool, "-sass", str(_library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    return {k: sass.count(k + ".") + sass.count(k + " ")
+            for k in ("HGMMA", "LDGSTS", "HMMA")}
+
+
 def build_all():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together; holds the launch
+    plan's constants to the built fused_epoch library. Returns a function
+    that waits for the SASS census of the two fused libraries (cuobjdump
+    runs beside the next phase) and checks it."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train
     from asr_using_robust_nn_tpu_torch.ops._build import (
         build_log, load_library)
 
@@ -2286,6 +2622,24 @@ def build_all():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for n in names:
         print(build_log(n), flush=True)
+    print(f"build: fused_epoch.cu has the launch plan's geometry; shared "
+          f"memory a block, bytes: "
+          f"{cuda_train.kernel_geometry(cuda_train._lib())}", flush=True)
+    fused = ("fused_epoch", "fused_step")
+    pool = ThreadPoolExecutor(len(fused))
+    pending = [pool.submit(sass_census, n) for n in fused]
+
+    def finish_census():
+        for n, fut in zip(fused, pending):
+            census = fut.result()
+            print(f"build: SASS of {n}.cu (cuobjdump): {census}", flush=True)
+            check(census["HGMMA"] > 0 and census["LDGSTS"] > 0
+                  and census["HMMA"] == 0,
+                  f"{n}.cu: its GEMMs must be wgmma from a cp.async ring, "
+                  f"with no warp-level MMA left: {census}")
+        pool.shutdown()
+
+    return finish_census
 
 
 def main() -> int:
@@ -2307,25 +2661,36 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
-    build_all()
+    walls = {}
 
-    kern = kernel_phase(dev)
-    k2 = k2_phase(dev)
-    k45 = k45_phase(dev)
-    serve = serving_phase(dev)
-    split = featurize_phase(dev)
-    k3 = k3_phase(dev, split)
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return res
+
+    finish_census = timed("build", build_all)
+    kern = timed("kernel", kernel_phase, dev)
+    finish_census()
+    k2 = timed("k2", k2_phase, dev)
+    k45 = timed("k45", k45_phase, dev)
+    serve = timed("serve", serving_phase, dev)
+    split = timed("featurize", featurize_phase, dev)
+    k3 = timed("k3", k3_phase, dev, split)
     k3_args = k3.pop("timing_args")
-    k6 = k6_phase(dev, k3_args)
-    train = train_phase(dev, split)
-    mrun = multi_run_phase(dev, split)
-    prep = prepare_phase(dev)
-    timing = timing_phase(dev, serve.pop("engine"))
-    ttime = train_timing_phase(dev, k3_args)
-    stime = step_timing_phase(dev, k6.pop("timing_args"),
-                              mrun.pop("timing_args"), ttime["k3"]["ms"])
-    ftime = frontend_timing_phase(dev, prep)
-    lib = library_phase(dev, k3_args)
+    k6 = timed("k6", k6_phase, dev, k3_args)
+    train = timed("train", train_phase, dev, split)
+    mrun = timed("multi_run", multi_run_phase, dev, split)
+    prep = timed("prepare", prepare_phase, dev)
+    timing = timed("timing", timing_phase, dev, serve.pop("engine"))
+    ttime = timed("train_timing", train_timing_phase, dev, k3_args)
+    stime = timed("step_timing", step_timing_phase, dev,
+                  k6.pop("timing_args"), mrun.pop("timing_args"),
+                  ttime["k3"]["ms"])
+    ftime = timed("frontend_timing", frontend_timing_phase, dev, prep)
+    lib = timed("library", library_phase, dev, k3_args)
+    print(f"wall seconds by phase: {walls}", flush=True)
     k4t, k5t = ftime["K4_1024"], ftime["K5_1024"]
     tab = cuda_mfcc.fft_tables(cuda_mfcc.FrontendConfig.digit())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2400,6 +2765,10 @@ def main() -> int:
         "library_ms": None,
         "shape": "digit epoch: 33 steps x 512 rows, 896..128 padded",
         "tflops": ttime["k3"]["tflops"],
+        "graph_nodes_per_step": ttime["k3"]["graph_nodes_per_step"],
+        "design": "wgmma GEMMs from a 4-stage cp.async ring; BN in the GEMM "
+                  "epilogues on clusters along the batch; dW split over the "
+                  "batch on clusters; CCE on rows/8 blocks",
         "epoch_program_fp32_ms": ttime["epoch_program_fp32"]["ms"],
         "epoch_program_bf16_ms": ttime["epoch_program_bf16"]["ms"],
     }, {
@@ -2458,6 +2827,8 @@ def main() -> int:
         "library_ms": None,
         "shape": "digit step: 512 rows, 896..128 padded, rho 0.1, 16 rounds",
         "replay_ms": stime["replay_ms"],
+        "tflops": stime["tflops"],
+        "graph_nodes_per_step": stime["graph_nodes_per_step"],
         "chain_step_ms": stime["chain_step_ms"],
         "k3_step_ms": stime["k3_step_ms"],
         "train_step_ms": stime["train_step_ms"],

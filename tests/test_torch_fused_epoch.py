@@ -366,3 +366,133 @@ def test_fused_fit_on_cpu_trains():
     assert h["loss"][-1] < h["loss"][0]
     assert res["opt_state"]["count"].item() == 16
     assert res["constraint_state"]["u"].shape == (4,)
+
+
+# -- the launch plan of the kernels (pure Python, no card) ----------------------
+
+PRESETS = ("digit_unconstrained", "digit_constrained",
+           "speaker_unconstrained", "speaker_constrained")
+
+
+@pytest.mark.parametrize("batch", [64, 512, 1024])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_launch_plan_fits_and_covers(preset, batch):
+    """Every launch of a step fits a block's shared memory and the portable
+    cluster; the GEMM grids (block (x, y) computes tile row y, tile column x)
+    cover each padded matrix exactly once; a batch cluster holds all the
+    rows of its column tile; the depth ranks of a dW tile own disjoint,
+    complete row and depth slices; `dims()` hands the C entry that launch."""
+    spec = ct.FusedStepSpec(cfg=getattr(mlp.MLPConfig, preset)(), batch=batch,
+                            rho=0.1)
+    plan = ct.launch_plan(spec)
+    assert plan["bn_in_epilogue"] == (batch <= 512)
+    launches = ct.plan_launches(plan)
+    m, pd = spec.n_layers, spec.pdims
+    n_hidden_extra = 0 if plan["bn_in_epilogue"] else 2 * (m - 1)
+    assert len(launches) == m + 1 + (m - 1) + m + n_hidden_extra
+    for L in launches:
+        assert L.smem_bytes <= ct.SMEM_LIMIT == 232448
+        assert 1 <= L.cluster_size <= 8
+        assert all(g % c == 0 for g, c in zip(L.grid, L.cluster))
+        assert list(L.dims()) == [*L.grid, *L.cluster, L.smem_bytes]
+        if L.kernel in ("bn_fwd", "bn_bwd"):
+            assert L.grid[0] * L.tile[1] == L.cols  # every column once
+            continue
+        if L.kernel == "ce":
+            assert L.grid[0] * L.tile[0] == batch   # every row once
+            continue
+        assert L.tile == (64, 64, 64) and L.stages >= 3
+        assert (L.grid[1] * L.tile[0], L.grid[0] * L.tile[1]) == (L.rows,
+                                                                  L.cols)
+        assert L.smem_bytes >= 1024 + L.stages * 2 * 64 * 128  # the ring
+        assert L.bn_in_epilogue == (L.kernel in ("fwd_bn", "dx_bn"))
+        if L.cluster_axis == "batch":
+            assert L.cluster == (1, batch // 64, 1) and L.rows == batch
+    for i, L in enumerate(plan["dw"]):
+        assert (L.rows, L.cols, L.depth) == (pd[i], pd[i + 1], batch)
+        assert L.cluster == (1, 1, L.grid[2]) and L.cluster_axis == "depth"
+        rows = [r for a, b in L.rank_rows() for r in range(a, b)]
+        assert rows == list(range(64))              # disjoint and complete
+        depth = [k for a, b in L.rank_depth() for k in range(a, b)]
+        assert depth == list(range(batch))
+        assert all((b - a) % 64 == 0 for a, b in L.rank_depth())
+    # narrow products are spread over the depth, wide ones are not
+    blocks = [L.grid[0] * L.grid[1] * L.grid[2] for L in plan["dw"]]
+    assert all(b >= min(128, (pd[i] // 64) * (pd[i + 1] // 64) * min(8, batch // 64))
+               for i, b in enumerate(blocks))
+    # a dW block holds the ring and its rows of master and moments, twice an SM
+    assert all(2 * (L.smem_bytes + 1024) <= 233472 for L in plan["dw"])
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(batch=40), "multiple of 64"),
+    (dict(batch=0), "multiple of 64"),
+    (dict(pallas_relu_mask=True), "pallas_relu_mask"),
+    (dict(n_classes=600), "padded classes"),
+])
+def test_launch_plan_refuses_what_the_kernels_do_not_take(kw, match):
+    """The refusals come from the plan, before any kernel is built."""
+    _, spec = _specs(**kw)
+    with pytest.raises(ValueError, match=match):
+        ct.launch_plan(spec)
+    with pytest.raises(ValueError, match=match):
+        ct._CudaOps(spec)
+
+
+class _RankOrderOps(ct._PlainOps):
+    """The twin with the kernels' summation orders: column sums add 64-row
+    blocks in rank order, dW adds the depth slices of the plan in rank
+    order."""
+
+    def __init__(self, spec):
+        super().__init__(spec)
+        self.plan = ct.launch_plan(spec)
+
+    def colsum(self, t):
+        total = torch.zeros(t.shape[1])
+        for block in t.split(64):
+            total = total + block.sum(0)
+        return total
+
+    def dw_product(self, i, acts, dzb):
+        total = torch.zeros((acts.shape[1], dzb.shape[1]))
+        for k0, k1 in self.plan["dw"][i].rank_depth():
+            total = total + acts[k0:k1].float().T @ dzb[k0:k1].float()
+        return total
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_rank_ordered_reductions_match_the_twin(dropout):
+    """Two steps of the twin with the cluster-ordered sums against the twin
+    with torch's own order, batch 256 (four ranks along the batch and, for
+    these one-tile layers, four along the depth). fp32 sums in another
+    order differ by ~1e-7 relative; Adam turns that into at most a few
+    1e-6 of a parameter, and into a +-lr step only for a gradient within
+    rounding of zero, which the zero-padded entries never are."""
+    rng = np.random.default_rng(11)
+    _, spec = _specs(batch=256, dropout=(dropout, dropout))
+    plan = ct.launch_plan(spec)
+    assert [L.cluster[2] for L in plan["dw"]] == [4, 4, 4]
+    assert plan["fwd"][0].cluster == (1, 4, 1)
+    xs, ys, ws, seeds = _epoch_inputs(rng, spec, 2, ragged=16)
+    params, state = mlp.init_mlp(spec.cfg, torch.Generator().manual_seed(11),
+                                 device="cpu")
+    fs0 = ct.pack_state(spec, params, state)
+    args = [torch.from_numpy(a) for a in (xs, ys, ws, seeds)]
+    f1, l1, a1 = ct.fused_epoch_plain(spec, fs0, *args)
+    f2, l2, a2 = ct.fused_epoch_plain(spec, fs0, *args,
+                                      ops=_RankOrderOps(spec))
+    torch.testing.assert_close(l1, l2, atol=1e-6, rtol=0)
+    torch.testing.assert_close(a1, a2, atol=1e-6, rtol=0)
+    for k in ("mw", "vw"):
+        for a, b in zip(f1[k], f2[k]):
+            torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-4)
+    for a, b in zip(f1["masters"], f2["masters"]):
+        # a weight whose gradient is within rounding of zero may take its
+        # +-lr step the other way; no more than a handful do
+        off = (a - b).abs() > 1e-5
+        assert off.float().mean() < 1e-3
+        assert float((a - b).abs().max()) <= 2.5 * spec.lr
+    for k in ("rmean", "rvar"):
+        torch.testing.assert_close(f1["small"][k], f2["small"][k], atol=1e-6,
+                                   rtol=0)

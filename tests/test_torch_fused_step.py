@@ -437,3 +437,48 @@ def test_step_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="fused step"):
         k6.build_fused_step(spec)(fs, torch.zeros((32, 128)),
                                   torch.zeros(32), torch.ones(32), 0)
+
+
+# -- K6's launch plan (pure Python, no card) -------------------------------------
+
+PRESETS = ("digit_unconstrained", "digit_constrained",
+           "speaker_unconstrained", "speaker_constrained")
+
+
+@pytest.mark.parametrize("batch", [64, 512, 1024])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_step_plan_adam_slices_partition_every_kernel(preset, batch):
+    """Every dW launch fits a block; over all tiles and depth ranks the rows
+    a rank fetches and updates cover each padded kernel exactly once (so
+    Adam runs once per weight), and the ranks' depth slices cover the batch
+    exactly once."""
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig
+
+    spec = ct.FusedStepSpec(cfg=getattr(MLPConfig, preset)(), batch=batch,
+                            rho=0.1)
+    plan = ct.launch_plan(spec)
+    for i, L in enumerate(plan["dw"]):
+        assert L.smem_bytes <= ct.SMEM_LIMIT and L.cluster_size <= 8
+        assert L.cluster_size == L.cluster[2] == L.grid[2]
+        updated = np.zeros((spec.pdims[i], spec.pdims[i + 1]), int)
+        for by in range(L.grid[1]):
+            for bx in range(L.grid[0]):
+                for r0, r1 in L.rank_rows():
+                    updated[by * 64 + r0: by * 64 + r1,
+                            bx * 64: (bx + 1) * 64] += 1
+        assert (updated == 1).all()
+        summed = np.zeros(batch, int)
+        for k0, k1 in L.rank_depth():
+            summed[k0:k1] += 1
+        assert (summed == 1).all()
+        # the ring and a whole tile of master and both moments
+        assert L.smem_bytes == 1024 + L.stages * 2 * 64 * 128 + 3 * 64 * 64 * 4
+
+
+def test_step_ops_refuse_more_layers_than_the_rescale_takes():
+    cfg = _specs()[1].cfg
+    import dataclasses
+    deep = dataclasses.replace(cfg, hidden=(16,) * 17, dropout=(0.0,) * 17)
+    spec = ct.FusedStepSpec(cfg=deep, batch=64, rho=0.5)
+    with pytest.raises(ValueError, match="at most 16 layers"):
+        k6._CudaStepOps(spec)

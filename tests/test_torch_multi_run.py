@@ -379,6 +379,87 @@ def test_multi_run_epoch_matches_jax():
                                atol=2e-4)
 
 
+def test_frozen_run_rows_vs_jax(monkeypatch):
+    """`fit_multi_run` through both packages on the CPU: the same stacked
+    initial parameters and power-iteration vectors (numpy, from the JAX
+    init), the same numpy-seeded data, shuffle off, dropout 0, and a patience
+    that freezes the runs at different chunks. Parameters, BN state, the
+    validation rows, `best_*` and `epochs_run` agree (two fp32 programs
+    whose sums run in different orders, over up to 8 epochs of 5 steps:
+    5e-4), and so do the train rows of every run up to its `epochs_run`.
+
+    Past `epochs_run[r]` the train rows differ by design, asserted by name:
+    the JAX program trains every run in every chunk and masks the frozen
+    ones afterwards, so those rows show the discarded chunk's finite
+    values; the port does not train a run whose result it would discard
+    (a frozen run costs no GPU time), so those rows read NaN."""
+    from asr_using_robust_nn_tpu.train.trainer import (
+        TrainConfig as JTrainConfig)
+    from asr_using_robust_nn_tpu_torch.train import multi_run as mr
+
+    kw = dict(KW, dropout=(0.0, 0.0))
+    jcfg, cfg = jmlp.MLPConfig(**kw), MLPConfig(**kw)
+    x, y, xv, yv = _toy_data(300, 80)
+    yv = np.random.default_rng(1).permutation(yv)  # val_loss worsens
+    seeds = [3, 7, 11]
+    tkw = dict(batch_size=BS, epochs=8, patience=1, device_resident=True,
+               epochs_per_dispatch=1, shuffle=False)
+    jcon, jopt = jmake(rho=1.0), jadam(1e-3)
+    jinit = jmr.init_multi_run_state(jcfg, jopt, seeds, jcon.init)
+    p_np, s_np = jax.tree_util.tree_map(np.asarray, (jinit[0], jinit[1]))
+    u_np = {"u": np.asarray(jinit[3]["u"])}
+    jres = jmr.fit_multi_run(jcfg, JTrainConfig(**tkw), x, y, xv, yv, seeds,
+                             constraint=jcon.apply, constraint_init=jcon.init)
+
+    def init_from_jax(model_cfg, optimizer, run_seeds, constraint_init=None,
+                      mesh=None, device=None):
+        port = init_multi_run_state(model_cfg, optimizer, run_seeds,
+                                    constraint_init, device=device)
+        params, state = params_from_numpy(p_np, s_np, device="cpu")
+        zeros = jax.tree_util.tree_map(np.zeros_like, p_np)
+        opt_state = adam_state_from_numpy(np.zeros(3, np.int32), zeros, zeros,
+                                          device="cpu")
+        return (params, state, opt_state,
+                cstate_from_numpy(u_np, device="cpu"), port[4], port[5])
+
+    monkeypatch.setattr(mr, "init_multi_run_state", init_from_jax)
+    res = fit_multi_run(cfg, TrainConfig(**tkw), x, y, xv, yv, seeds,
+                        constraint=CON.apply, constraint_init=CON.init,
+                        device="cpu")
+
+    er = res["epochs_run"]
+    np.testing.assert_array_equal(er, jres["epochs_run"])
+    np.testing.assert_array_equal(res["best_epoch"], jres["best_epoch"])
+    n_chunks = res["history"]["loss"].shape[0]
+    assert jres["history"]["loss"].shape[0] == n_chunks
+    assert len(set(er.tolist())) > 1 and er.min() < n_chunks, er
+    tol = dict(atol=5e-4, rtol=0)
+    np.testing.assert_allclose(res["best_val_loss"], jres["best_val_loss"],
+                               **tol)
+    for key in ("val_loss", "val_acc"):
+        np.testing.assert_allclose(res["history"][key], jres["history"][key],
+                                   **tol)
+    for got, want in ((params_to_numpy(res["params"], res["state"]),
+                       (jres["params"], jres["state"])),
+                      (params_to_numpy(res["best_params"], res["best_state"]),
+                       (jres["best_params"], jres["best_state"]))):
+        for a, b in zip(jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(a, np.asarray(b), **tol)
+    frozen_rows = 0
+    for r in range(len(seeds)):
+        stop = int(er[r])  # epochs_per_dispatch=1 -> chunk index
+        for key in ("loss", "acc"):
+            got, want = res["history"][key][:, r], jres["history"][key][:, r]
+            np.testing.assert_allclose(got[:stop], want[:stop], **tol)
+            port_rows_past_freeze_are_nan = np.isnan(got[stop:]).all()
+            jax_rows_past_freeze_are_finite = np.isfinite(want[stop:]).all()
+            assert port_rows_past_freeze_are_nan, (r, key, got)
+            assert jax_rows_past_freeze_are_finite, (r, key, want)
+        frozen_rows += n_chunks - stop
+    assert frozen_rows > 0  # at least one run sat frozen through a chunk
+
+
 # -- models/convert.py: K6 and stacked states cross unchanged -------------------
 
 def _k6_state_np():
