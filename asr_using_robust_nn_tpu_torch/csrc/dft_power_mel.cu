@@ -1,9 +1,10 @@
 // K1 on Hopper, dense body: in-kernel framing -> windowed rDFT as a dense
-// product -> |.|^2 -> mel projection, for every n_fft the FFT body
-// (csrc/fft_power_mel.cu) does not take: any n_fft that is not a power of
-// two in [32, 4096]. Of the presets that is the speaker one (n_fft 441 =
-// 21 x 21, hop 220, 221 bins); ops/cuda_mfcc.py::kernel_body picks the body
-// from the config alone.
+// product -> |.|^2 -> mel projection, for every n_fft neither FFT body
+// takes: one outside [32, 4096] or with a prime factor above 7, a prime
+// n_fft such as 401 among them. Neither preset comes here (digit: the FFT
+// body csrc/fft_power_mel.cu; speaker, 441 = 3^2 7^2: the mixed body
+// csrc/mixed_fft_power_mel.cu); ops/cuda_mfcc.py::kernel_body picks the
+// body from the config alone.
 //
 // Replaces asr_using_robust_nn_tpu/ops/pallas_mfcc.py::_dft_power_mel_kernel,
 // the Pallas TPU kernel behind mel_power_pallas / mfcc_pallas_batch. It
@@ -21,8 +22,8 @@
 // speaker bucket is 103 424 frames x 441 x 221 x 4 = 40 GFLOP of fp64, 1.2
 // ms at the 34 TFLOP/s peak. The digit preset's 378 GFLOP made this body
 // the serving path's largest cost, which is why that preset moved to the
-// FFT body; at 441 points the dense form costs 4x a two-stage 21 x 21
-// transform would, and stays until that form is written.
+// FFT body, and the speaker preset's 40 GFLOP why it moved to the mixed
+// body.
 //
 // What the design does about the bound:
 //  * Register tiling. A block of 256 threads owns 64 frame rows. Each thread

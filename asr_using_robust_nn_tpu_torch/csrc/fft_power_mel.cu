@@ -53,9 +53,10 @@
 //    two stages over the banks.
 //  * Each stage is in place: a butterfly reads and writes its own four
 //    points, so one barrier per stage is enough.
-// Later work: radix-16 stages in registers (three passes instead of five),
-// and the same form for n_fft = 441 = 21 x 21 (two stages of 21-point dense
-// products), which the dense body csrc/dft_power_mel.cu still serves.
+// Later work: radix-16 stages in registers (three passes instead of five).
+// An n_fft that is no power of two (the speaker preset's 441) goes to the
+// mixed body, csrc/mixed_fft_power_mel.cu, which packs two frames into one
+// complex transform instead of one frame's even and odd samples.
 
 #include <cuda_runtime.h>
 

@@ -2,6 +2,9 @@
 // (fused_epoch.cu, fused_step.cu), the helpers their epilogues are written
 // with, and the dW + Adam kernel body both files instantiate.
 //
+// The shared-memory ring (ring_loop) also carries K4's int8 operands
+// (int8_dft_power_mel.cu).
+//
 // Main loop: one warpgroup (128 threads) computes a 64 x 64 fp32 tile as a
 // sum over 64-deep bf16 operand tiles. The tiles travel through a ring of
 // kStages shared-memory stages filled by 16-byte cp.async copies (every
@@ -131,6 +134,33 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// The ring: S stages of shared memory that steps 0 .. n - 1 pass through in
+// turn. fill(k) starts the cp.async copies of step k into stage k % S;
+// consume(k) uses them once they have landed. Up to S - 1 steps are in
+// flight while one is consumed; a stage is refilled only after every thread
+// of the block has passed the barrier that follows its consumption. Writes
+// to shared memory that fill(k) makes with plain stores are fenced for the
+// async proxy (wgmma) with the copies. All threads of the block call it; on
+// return no copy is pending.
+template <int S, class Fill, class Consume>
+__device__ __forceinline__ void ring_loop(int n, Fill&& fill,
+                                          Consume&& consume) {
+  static_assert(S >= 2, "a ring has two stages or more");
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n) fill(s);
+    cp_commit();
+  }
+  for (int k = 0; k < n; ++k) {
+    cp_wait<S - 2>();  // this thread's copies of step k have landed
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // ... everyone's; and step k - 1 has been consumed
+    if (k + S - 1 < n) fill(k + S - 1);
+    cp_commit();
+    consume(k);
+  }
+  cp_wait<0>();
+}
+
 // acc = sum over nk depth tiles from kbeg of A-tile . B-tile for the output
 // tile at (m0, n0). AT: A is stored (K, lda), else (M, lda). BT: B is stored
 // (N, ldb), else (K, ldb). `ring` is kRingBytes of 1024-aligned shared
@@ -148,16 +178,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[32], const bf16* A,
     load_tile<AT>(a, A, lda, m0, kbeg + kt * kTile);
     load_tile<!BT>(a + kTileBytes, B, ldb, n0, kbeg + kt * kTile);
   };
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) fill(s);
-    cp_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<kStages - 2>();  // this thread's copies of tile kt have landed
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();  // ... everyone's; and tile kt - 1 has been multiplied
-    if (kt + kStages - 1 < nk) fill(kt + kStages - 1);
-    cp_commit();
+  auto consume = [&](int kt) {
     const uint32_t a = ring + (kt % kStages) * 2 * kTileBytes;
     const uint32_t b = a + kTileBytes;
     wgmma_fence();
@@ -169,8 +190,8 @@ __device__ __forceinline__ void mainloop(float (&acc)[32], const bf16* A,
     }
     wgmma_commit();
     wgmma_wait0();
-  }
-  cp_wait<0>();
+  };
+  ring_loop<kStages>(nk, fill, consume);
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
   __syncthreads();

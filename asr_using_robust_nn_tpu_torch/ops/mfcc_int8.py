@@ -74,7 +74,8 @@ def _block_scale(mx: torch.Tensor) -> torch.Tensor:
                        torch.ones_like(mx))
 
 
-def _wave_digits(y: torch.Tensor) -> tuple[list[torch.Tensor], torch.Tensor]:
+def _wave_digits(y: torch.Tensor, out: torch.Tensor | None = None
+                 ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Base-128 int8 digits of per-row block-scaled audio.
 
     Each row is multiplied by a power-of-two factor f (exact in fp32) so
@@ -82,16 +83,26 @@ def _wave_digits(y: torch.Tensor) -> tuple[list[torch.Tensor], torch.Tensor]:
     caller undoes the scaling on the power spectrum (power * f^-2), also
     exact. The DFT is linear and power_to_db's ref=max is per-utterance, so
     semantics are unchanged. `torch.round` rounds half to even, as
-    `jnp.round` does."""
+    `jnp.round` does. With `out` ((3, B, >= L) int8) the digits are written
+    into out[:, :, :L] and the list holds those views.
+
+    The digit scales are powers of two, so res * (1 / s) is res / s and
+    res - d * s is one exact-product subtraction: the passes run in place
+    and give the JAX package's digits bit for bit."""
     y = y.float()
-    mx = y.abs().amax(dim=1, keepdim=True)
+    b, n = y.shape
+    mx = torch.linalg.vector_norm(y, ord=float("inf"), dim=1, keepdim=True)
     f = _block_scale(mx)
     res = y * f
+    if out is None:
+        out = torch.empty((3, b, n), dtype=torch.int8, device=y.device)
     digits = []
-    for s in _X_SCALES:
-        d = torch.round(res / s)
-        digits.append(d.to(torch.int8))
-        res = res - d * s
+    for i, s in enumerate(_X_SCALES):
+        d = torch.mul(res, 1.0 / s).round_()
+        digits.append(out[i, :, :n])
+        digits[-1].copy_(d)
+        if i < len(_X_SCALES) - 1:
+            res.add_(d, alpha=-s)
     return digits, f[:, 0]
 
 

@@ -7,19 +7,21 @@ on an NVIDIA GPU and check them.
 Needs one CUDA device and nvcc; imports nothing of JAX. Phases, each of
 which raises on failure (the exit code is then non-zero):
 
-  build    compile csrc/fft_power_mel.cu and dft_power_mel.cu (K1: the FFT
-           body of the digit preset, the dense body of the speaker preset),
-           product_power_iter.cu (K2), fused_epoch.cu (K3),
+  build    compile csrc/fft_power_mel.cu, mixed_fft_power_mel.cu and
+           dft_power_mel.cu (K1: the FFT body of the digit preset, the
+           mixed-radix body of the speaker preset, the dense body of a prime
+           n_fft), product_power_iter.cu (K2), fused_epoch.cu (K3),
            int8_dft_power_mel.cu (K4), dft_power_mel_x3.cu (K5) and
            fused_step.cu (K6) from the checkout, one nvcc each, all started
            together; print the build times and the compiler's
            register/shared-memory reports;
   kernel   K1 (`mel_power_cuda`) against its plain fp32 twin, an f64 chain
-           and, where the FFT body runs, `mel_power_fft_plain`, on the card:
+           and, where an FFT body runs, its float64 decomposition twin
+           (`mel_power_fft_plain`, `mel_power_mixed_plain`), on the card:
            both presets, B in {1, 3} (ragged row counts) and every bucket
-           {16, 64, 256, 1024}, and both bodies at win_length < n_fft with an
-           odd hop; the full K1 MFCC against the f64 oracle and
-           tests/golden_mfcc.npz (5e-4). K2 (`product_spectral_norm_cuda`,
+           {16, 64, 256, 1024}, both FFT bodies at win_length < n_fft with an
+           odd hop, and the dense body at a prime n_fft (401); the full K1
+           MFCC against the f64 oracle and tests/golden_mfcc.npz (5e-4). K2 (`product_spectral_norm_cuda`,
            one cluster launch) against its twin and its partition-ordered
            twin at the digit widths (n_iter 0, 4 and 16, bf16 and fp32
            matvecs), the speaker widths, a chain with an 8192-wide layer and
@@ -39,7 +41,7 @@ which raises on failure (the exit code is then non-zero):
            pipeline; int16 ingress must be bit-equal to f32 ingress; the K1
            launch count must equal the number of frontend calls. Then a
            speaker_constrained engine aggregates windows of a 6-s recording
-           and classifies WAV files;
+           and classifies WAV files (K1's mixed body);
   train    the training path. 16 566 + 2 048 + 1 024 seeded 1-s utterances
            (10 classes; the class sets pitch and timbre) made on the card,
            featurized by K1 in chunks of 1024 and standardized. Every
@@ -89,6 +91,7 @@ which raises on failure (the exit code is then non-zero):
   timing   K1 against its plain twin at the 1024-row buckets (CUDA events),
            the engine's warm p50/p95 per bucket and ingress dtype, and
            beside each the request's host-to-device copy and K1 timed alone;
+           the speaker engine's warm p50/p95 over a 6-s recording's windows;
            K2 against its twin at n_iter 4 and 16; K3 per epoch against its
            twin and against the plain epoch (fp32 and bf16), with K3's
            TFLOP/s; K6 per step (graph replay, whole call, chain) against
@@ -175,22 +178,29 @@ def kernel_phase(dev, batches=(1, 3, 16, 64, 256, 1024)):
     import torch
     from asr_using_robust_nn_tpu_torch.ops import frontend_ref
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (
-        kernel_body, mel_power_cuda, mel_power_fft_plain, mel_power_plain,
-        mfcc_cuda_batch)
+        kernel_body, mel_power_cuda, mel_power_fft_plain,
+        mel_power_mixed_plain, mel_power_plain, mfcc_cuda_batch)
     from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
 
     summary = {}
+    # each FFT body's own decomposition in float64 PyTorch
+    fft_twins = {"fft": mel_power_fft_plain, "mixed": mel_power_mixed_plain}
     presets = {"digit": FrontendConfig.digit(),
                "speaker": FrontendConfig.speaker()}
     # a window shorter than n_fft (zero padded to the centre) and an odd
-    # hop, through both bodies; B in {1, 3} only
+    # hop, through both FFT bodies, and a prime n_fft, which only the dense
+    # body takes; B in {1, 3} only
     short = {"fft win400/512 hop161": dataclasses.replace(
                  presets["digit"], n_fft=512, win_length=400, hop_length=161),
-             "dense win400/441 hop161": dataclasses.replace(
-                 presets["speaker"], win_length=400, hop_length=161)}
-    bodies = {"digit": "fft", "speaker": "dense",
+             "mixed win400/441 hop161": dataclasses.replace(
+                 presets["speaker"], win_length=400, hop_length=161),
+             "dense n401 hop161": dataclasses.replace(
+                 presets["speaker"], n_fft=401, win_length=401,
+                 hop_length=161)}
+    bodies = {"digit": "fft", "speaker": "mixed",
               "fft win400/512 hop161": "fft",
-              "dense win400/441 hop161": "dense"}
+              "mixed win400/441 hop161": "mixed",
+              "dense n401 hop161": "dense"}
     for preset, cfg in {**presets, **short}.items():
         body = kernel_body(cfg)
         check(body == bodies[preset], f"K1 body {body} at {preset}")
@@ -199,11 +209,12 @@ def kernel_phase(dev, batches=(1, 3, 16, 64, 256, 1024)):
             got = mel_power_cuda(w, cfg)
             torch.cuda.synchronize()
             plain = mel_power_plain(w, cfg)
-            # the FFT body's window and twiddles are float64, so it is held
-            # to the chain with float64 constants: against the fp32-rounded
-            # ones it reads up to 1.7e-5 on bands far under a row's peak,
-            # which is the rounding of those constants, not the kernel's
-            ref = mel_f64(w, cfg, exact=body == "fft")
+            # the FFT bodies' windows and twiddles are float64, so they are
+            # held to the chain with float64 constants: against the
+            # fp32-rounded ones the FFT body reads up to 1.7e-5 on bands far
+            # under a row's peak, which is the rounding of those constants,
+            # not the kernel's
+            ref = mel_f64(w, cfg, exact=body in fft_twins)
             peak = ref.max().item()
             big = ref > 1e-6 * peak
             rel_plain = ((got - plain).abs() / plain.abs())[big].max().item()
@@ -218,15 +229,15 @@ def kernel_phase(dev, batches=(1, 3, 16, 64, 256, 1024)):
             plain_ok = torch.all((got - plain).abs()
                                  <= 1e-4 * plain.abs() + 1e-8 * peak).item()
             line = ""
-            if body == "fft":
+            if body in fft_twins:
                 # the same decomposition in float64 PyTorch: only the
                 # kernel's fp32 band sums differ -> 1e-5 relative
-                twin = mel_power_fft_plain(w, cfg)
+                twin = fft_twins[body](w, cfg)
                 rel_twin = ((got - twin).abs() / twin.abs())[big].max().item()
-                line = f", vs fft twin {rel_twin:.3e}"
+                line = f", vs {body} twin {rel_twin:.3e}"
                 check(torch.all((got - twin).abs() <= 1e-5 * twin.abs()
                                 + 1e-12 * peak).item(),
-                      f"K1 {preset} B={b} disagrees with mel_power_fft_plain")
+                      f"K1 {preset} B={b} disagrees with its {body} twin")
             print(f"kernel {preset} ({body} body) B={b} "
                   f"rows={b * cfg.num_frames(22050)}: "
                   f"max_rel vs f64 {rel_f64:.3e}, vs plain {rel_plain:.3e}"
@@ -241,8 +252,13 @@ def kernel_phase(dev, batches=(1, 3, 16, 64, 256, 1024)):
             check(plain_ok or preset not in presets,
                   f"K1 {preset} B={b} disagrees with its plain twin")
             if preset == "digit" and b == max(batches):
-                summary = {"max_abs_err": abs_plain, "max_rel_err": rel_plain,
-                           "max_rel_err_vs_f64": rel_f64, "peak": peak}
+                summary.update({"max_abs_err": abs_plain,
+                                "max_rel_err": rel_plain,
+                                "max_rel_err_vs_f64": rel_f64, "peak": peak})
+            if preset == "speaker" and b == max(batches):
+                summary.update({"speaker_max_abs_err": abs_plain,
+                                "speaker_max_rel_err": rel_plain,
+                                "speaker_max_rel_err_vs_f64": rel_f64})
         if preset not in presets:
             continue
 
@@ -416,7 +432,8 @@ def serving_phase(dev, request_sizes=(5, 16, 100, 1024, 1500),
           f"{frontend_calls}", flush=True)
     check(launches == frontend_calls,
           f"K1 launched {launches} times for {frontend_calls} frontend calls")
-    return {"launches": launches, "max_probs_err": worst, "engine": eng}
+    return {"launches": launches, "max_probs_err": worst, "engine": eng,
+            "speaker_engine": s_eng, "recording": rec}
 
 
 # -- kernel phase: K2, K3 -------------------------------------------------------
@@ -2058,10 +2075,11 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def timing_phase(dev, eng, batch=1024, reps=5, requests=20):
+def timing_phase(dev, eng, s_eng, rec, batch=1024, reps=5, requests=20):
     """K1 vs its plain twin per preset (plain, kernel, kernel, plain, after
     one warm call each), then the engine's warm latency per bucket with the
-    H2D copy and K1 timed alone beside it."""
+    H2D copy and K1 timed alone beside it, and the speaker engine's warm
+    latency over the windows of the recording `rec`."""
     import torch
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (
         kernel_body, mel_power_cuda, mel_power_plain)
@@ -2128,6 +2146,27 @@ def timing_phase(dev, eng, batch=1024, reps=5, requests=20):
                   flush=True)
     out["layers"] = layers
     out["engine"] = lat
+
+    # the speaker engine: one classify_windows call a request (the
+    # recording's 1-s windows, one padded bucket), K1 (mixed body) alone on
+    # that bucket beside it
+    s_cfg = FrontendConfig.speaker()
+    s_eng.classify_windows(rec)
+    s_eng.latencies_s.clear()
+    for _ in range(requests):
+        n_win = s_eng.classify_windows(rec)["n_windows"]
+    st = s_eng.latency_stats()
+    bucket = s_eng._buckets_touched(n_win)[0]
+    ws = torch.from_numpy(synth_waves(bucket, seed=SEED + 6)).to(dev)
+    mel_power_cuda(ws, s_cfg)
+    k1_ms = time_ms(lambda: mel_power_cuda(ws, s_cfg), reps)
+    out["speaker_engine"] = {**st, "windows": n_win, "bucket": bucket,
+                             "k1_ms": k1_ms, "body": kernel_body(s_cfg)}
+    print(f"time speaker engine, {n_win} windows of a "
+          f"{len(rec) / s_cfg.sr:.0f}-s recording (bucket {bucket}): p50 "
+          f"{st['p50_ms']:.3f} ms p95 {st['p95_ms']:.3f} ms over {st['n']} "
+          f"warm requests; K1 ({kernel_body(s_cfg)} body) alone on the "
+          f"bucket {k1_ms:.3f} ms; card {card}", flush=True)
     return out
 
 
@@ -2386,15 +2425,38 @@ def bound_ms(n_bytes, ops):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def radix_ops(r):
+    """float64 operations of one radix-r butterfly of the mixed body: the
+    (r - 1) / 2 symmetric sums and differences, per output 4 FMAs a pair (2
+    more for an even r's middle term), and r - 1 twiddle products."""
+    h = (r - 1) // 2
+    return 4 * h + r * (8 * h + 2 * (r % 2 == 0)) + 6 * (r - 1)
+
+
 def frontend_work(cfg, batch, kernel, width=22050):
     """Bytes and operations of one rDFT -> power -> mel call on (batch,
-    width) fp32 waves, at the preset's true n_fft and n_freq."""
+    width) fp32 waves, at the preset's true n_fft and n_freq, for the body
+    that runs."""
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (
-        fft_tables, kernel_body)
+        fft_tables, kernel_body, mel_bands, mixed_tables)
 
     rows = batch * cfg.num_frames(width)
     dft, mel = cfg.n_fft * cfg.n_freq, cfg.n_freq * 128
     io = batch * width * 4 + rows * 128 * 4
+    band_w = mel_bands(cfg.sr, cfg.n_fft, cfg.n_mels)[2]
+    if kernel == "K1" and kernel_body(cfg) == "mixed":
+        # the mixed body: padded waves in, mel out, the tables once; float64
+        # a pair of frames: the window (2 a point), the stages (radix_ops),
+        # the separation with both powers (14 a bin); fp32: one FMA per
+        # banded mel weight a frame
+        tab = mixed_tables(cfg)
+        tables = sum(a.nbytes for a in tab if isinstance(a, np.ndarray))
+        per_pair = 2 * tab.n + 14 * cfg.n_freq + sum(
+            (tab.n // r) * radix_ops(r) for r in tab.radices)
+        n_bytes = batch * (width + 2 * (cfg.n_fft // 2)) * 4 \
+            + rows * 128 * 4 + tables
+        return n_bytes, {"fp64": -(-rows // 2) * per_pair,
+                         "fp32": rows * 2 * band_w.size}
     if kernel == "K1" and kernel_body(cfg) == "fft":
         # the FFT body: padded waves in, mel out, the tables once; float64:
         # the window, 34 operations a radix-4 butterfly (8 complex sums, 3
@@ -2410,9 +2472,10 @@ def frontend_work(cfg, batch, kernel, width=22050):
                          "fp32": rows * 2 * tab.band_w.size}
     if kernel in ("K1", "K1dense"):  # fp32 constants, fp32 products
         return io + (2 * dft + mel) * 4, {"fp32": rows * (4 * dft + 2 * mel)}
-    if kernel == "K4":  # six int8 digit matrices, twelve int8 products
-        return io + 6 * dft + mel * 4, {"int8": rows * 24 * dft,
-                                        "fp32": rows * 2 * mel}
+    if kernel == "K4":  # six int8 digit matrices, twelve int8 products, the
+        # banded fold (one FMA a band weight)
+        return io + 6 * dft + band_w.nbytes, {"int8": rows * 24 * dft,
+                                              "fp32": rows * 2 * band_w.size}
     # K5: hi/lo bf16 constants, six + three bf16 products
     return io + (4 * dft + 2 * mel) * 2, {"bf16": rows * (12 * dft + 6 * mel)}
 
@@ -2581,10 +2644,11 @@ def library_phase(dev, k3_args, reps=5):
 
 
 def sass_census(name):
-    """How many warpgroup MMAs (HGMMA), asynchronous global-to-shared copies
-    (LDGSTS: cp.async) and warp-level MMAs (HMMA: mma.sync / WMMA) the
-    compiled `csrc/<name>.cu` holds, by the cuobjdump that ships beside
-    nvcc (or the one on the PATH); raises without it."""
+    """How many warpgroup MMAs (HGMMA: floating point, IGMMA: integer),
+    asynchronous global-to-shared copies (LDGSTS: cp.async) and warp-level
+    MMAs (HMMA, IMMA: mma.sync / WMMA) the compiled `csrc/<name>.cu` holds,
+    by the cuobjdump that ships beside nvcc (or the one on the PATH); raises
+    without it."""
     import shutil
 
     from asr_using_robust_nn_tpu_torch.ops._build import _library_path, _nvcc
@@ -2598,23 +2662,23 @@ def sass_census(name):
     sass = subprocess.run([tool, "-sass", str(_library_path(name))],
                           check=True, capture_output=True, text=True).stdout
     return {k: sass.count(k + ".") + sass.count(k + " ")
-            for k in ("HGMMA", "LDGSTS", "HMMA")}
+            for k in ("HGMMA", "IGMMA", "LDGSTS", "HMMA", "IMMA")}
 
 
 def build_all():
     """One nvcc per kernel source, all started together; holds the launch
     plan's constants to the built fused_epoch library. Returns a function
-    that waits for the SASS census of the two fused libraries (cuobjdump
-    runs beside the next phase) and checks it."""
+    that waits for the SASS census of the two fused libraries and K4's
+    (cuobjdump runs beside the next phase) and checks it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from asr_using_robust_nn_tpu_torch.ops import cuda_train
     from asr_using_robust_nn_tpu_torch.ops._build import (
         build_log, load_library)
 
-    names = ("fft_power_mel", "dft_power_mel", "product_power_iter",
-             "fused_epoch", "int8_dft_power_mel", "dft_power_mel_x3",
-             "fused_step")
+    names = ("fft_power_mel", "mixed_fft_power_mel", "dft_power_mel",
+             "product_power_iter", "fused_epoch", "int8_dft_power_mel",
+             "dft_power_mel_x3", "fused_step")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(load_library, names))
@@ -2625,7 +2689,7 @@ def build_all():
     print(f"build: fused_epoch.cu has the launch plan's geometry; shared "
           f"memory a block, bytes: "
           f"{cuda_train.kernel_geometry(cuda_train._lib())}", flush=True)
-    fused = ("fused_epoch", "fused_step")
+    fused = ("fused_epoch", "fused_step", "int8_dft_power_mel")
     pool = ThreadPoolExecutor(len(fused))
     pending = [pool.submit(sass_census, n) for n in fused]
 
@@ -2633,8 +2697,9 @@ def build_all():
         for n, fut in zip(fused, pending):
             census = fut.result()
             print(f"build: SASS of {n}.cu (cuobjdump): {census}", flush=True)
-            check(census["HGMMA"] > 0 and census["LDGSTS"] > 0
-                  and census["HMMA"] == 0,
+            check(census["HGMMA"] + census["IGMMA"] > 0
+                  and census["LDGSTS"] > 0
+                  and census["HMMA"] + census["IMMA"] == 0,
                   f"{n}.cu: its GEMMs must be wgmma from a cp.async ring, "
                   f"with no warp-level MMA left: {census}")
         pool.shutdown()
@@ -2683,7 +2748,8 @@ def main() -> int:
     train = timed("train", train_phase, dev, split)
     mrun = timed("multi_run", multi_run_phase, dev, split)
     prep = timed("prepare", prepare_phase, dev)
-    timing = timed("timing", timing_phase, dev, serve.pop("engine"))
+    timing = timed("timing", timing_phase, dev, serve.pop("engine"),
+                   serve.pop("speaker_engine"), serve.pop("recording"))
     ttime = timed("train_timing", train_timing_phase, dev, k3_args)
     stime = timed("step_timing", step_timing_phase, dev,
                   k6.pop("timing_args"), mrun.pop("timing_args"),
@@ -2693,9 +2759,13 @@ def main() -> int:
     print(f"wall seconds by phase: {walls}", flush=True)
     k4t, k5t = ftime["K4_1024"], ftime["K5_1024"]
     tab = cuda_mfcc.fft_tables(cuda_mfcc.FrontendConfig.digit())
+    s_tab = cuda_mfcc.mixed_tables(cuda_mfcc.FrontendConfig.speaker())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     frames = {b: cuda_mfcc.frames_per_block(b * 44, tab.m, sms)
               for b in (16, 1024)}
+    pairs = {b: cuda_mfcc.pairs_per_block(b * 101, s_tab.n, sms)
+             for b in (16, 1024)}
+    s_engine = timing["speaker_engine"]
     plan = cuda_spectral.pi_plan(DIGIT_DIMS, cuda_spectral.CLUSTER_SIZE, True)
     kernels = [{
         "name": "dft_power_mel", "route": "cuda",
@@ -2705,9 +2775,9 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "max_rel_err": kern["max_rel_err"],
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain "
-                     "(float64 constants for the FFT body) and vs "
-                     "mel_power_fft_plain: 1e-5 rel; MFCC vs oracle/goldens: "
-                     "5e-4 abs",
+                     "(float64 constants for the FFT bodies) and vs "
+                     "mel_power_fft_plain / mel_power_mixed_plain: 1e-5 rel; "
+                     "MFCC vs oracle/goldens: 5e-4 abs",
         "ms": timing["digit"]["ms"], "plain_ms": timing["digit"]["plain_ms"],
         "bound_ms": timing["digit"]["bound_ms"],
         "bound_by": timing["digit"]["bound_by"],
@@ -2718,14 +2788,28 @@ def main() -> int:
                   f"{'/'.join(str(r) for r in tab.radices)} FFT of {tab.m} "
                   f"complex points in shared memory, banded mel, "
                   f"{frames[1024]} frames a block at bucket 1024, "
-                  f"{frames[16]} at bucket 16; speaker: dense body "
-                  f"({cuda_mfcc.KERNEL_SOURCES['dense']})",
+                  f"{frames[16]} at bucket 16; speaker: mixed body, float64 "
+                  f"radix-{'/'.join(str(r) for r in s_tab.radices)} FFT of "
+                  f"two frames packed as one {s_tab.n}-point complex "
+                  f"transform, banded mel, {pairs[1024]} pairs a block at "
+                  f"bucket 1024, {pairs[16]} at bucket 16; a prime n_fft: "
+                  f"dense body ({cuda_mfcc.KERNEL_SOURCES['dense']})",
         "dense_dft_bound_ms": k4t["k1_dense_bound_ms"],
         "b16_ms": timing["layers"]["16/float32"]["k1_ms"],
         "speaker_body": timing["speaker"]["body"],
+        "speaker_source": cuda_mfcc.KERNEL_SOURCES[timing["speaker"]["body"]],
+        "speaker_shape": "speaker bucket 1024 (103424 frames x 441)",
         "speaker_ms": timing["speaker"]["ms"],
         "speaker_plain_ms": timing["speaker"]["plain_ms"],
-        "speaker_bound_ms": k5t["k1_bound_ms"],
+        "speaker_bound_ms": timing["speaker"]["bound_ms"],
+        "speaker_bound_by": timing["speaker"]["bound_by"],
+        "speaker_library_chain_ms": k5t["rfft_chain_ms"],
+        "speaker_max_abs_err": kern["speaker_max_abs_err"],
+        "speaker_max_rel_err": kern["speaker_max_rel_err"],
+        "speaker_engine_p50_ms": s_engine["p50_ms"],
+        "speaker_engine_p95_ms": s_engine["p95_ms"],
+        "speaker_engine_windows": s_engine["windows"],
+        "speaker_engine_k1_ms": s_engine["k1_ms"],
     }, {
         "name": "product_power_iter", "route": "cuda",
         "source": cuda_spectral.KERNEL_SOURCE,
@@ -2789,6 +2873,10 @@ def main() -> int:
         "library_ms": None, "library_chain_ms": k4t["rfft_chain_ms"],
         "k1_ms": k4t["k1_ms"], "fp32_chain_ms": k4t["fp32_chain_ms"],
         "shape": "digit bucket 1024 (45056 frames x 2048 x 1025)",
+        "design": "two warpgroups a block of 64 frame rows, 64-bin chunks; "
+                  "wgmma m64n64k32 s8 from a 2-stage cp.async ring "
+                  "(gemm_sm90.cuh::ring_loop) on [Cr|Ci] tiles, three s32 "
+                  "accumulators; banded mel fold",
         "tops_int8": k4t["tops"],
         "b256_ms": ftime["K4_256"]["ms"],
         "b256_plain_ms": ftime["K4_256"]["plain_ms"],

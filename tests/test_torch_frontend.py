@@ -314,7 +314,13 @@ from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (  # noqa: E402
     fft_tables,
     frames_per_block,
     kernel_body,
+    mel_bands,
     mel_power_fft_plain,
+    mel_power_mixed_plain,
+    mixed_plan,
+    mixed_spectrum_plain,
+    mixed_tables,
+    pairs_per_block,
     stage_permutation,
     stage_plan,
 )
@@ -334,12 +340,19 @@ def _dense_spectrum(frames, cfg):
 
 class TestFftBody:
     def test_body_is_a_function_of_the_config(self):
+        """A power of two in [32, 4096] takes the FFT body; any other n_fft
+        there whose prime factors are 2, 3, 5 and 7 the mixed body (the
+        speaker preset's 441 = 3^2 7^2); a prime n_fft, or one outside
+        the range, the dense body."""
         assert kernel_body(FrontendConfig.digit()) == "fft"
-        assert kernel_body(FrontendConfig.speaker()) == "dense"
-        assert kernel_body(FrontendConfig.speaker_fast()) == "dense"
+        assert kernel_body(FrontendConfig.speaker()) == "mixed"
+        assert kernel_body(FrontendConfig.speaker_fast()) == "mixed"
         assert kernel_body(SHORT_WINDOW) == "fft"
         for n_fft, want in ((16, "dense"), (32, "fft"), (4096, "fft"),
-                            (8192, "dense"), (1000, "dense")):
+                            (8192, "dense"), (1000, "mixed"), (400, "mixed"),
+                            (441, "mixed"), (2187, "mixed"), (401, "dense"),
+                            (443, "dense"), (22 * 19, "dense"),
+                            (4410, "dense")):
             cfg = dataclasses.replace(FrontendConfig.digit(), n_fft=n_fft,
                                       win_length=n_fft)
             assert kernel_body(cfg) == want
@@ -348,6 +361,11 @@ class TestFftBody:
         with pytest.raises(ValueError, match="power of two"):
             mel_power_fft_plain(torch.zeros(1, 22050),
                                 FrontendConfig.speaker())
+        for n_fft in (2048, 401):
+            cfg = dataclasses.replace(FrontendConfig.speaker(), n_fft=n_fft,
+                                      win_length=n_fft)
+            with pytest.raises(ValueError, match="product of 2, 3, 5 and 7"):
+                mixed_tables(cfg)
 
     @pytest.mark.parametrize("n_fft", FFT_SIZES)
     def test_tables(self, n_fft):
@@ -492,3 +510,186 @@ class TestFftBody:
         assert f == want
         assert 2 * f * ((1024 + 128) * 16 + 1028 * 4) <= 232448
         assert frames_per_block(10 ** 6, 2048, 132) == 2  # n_fft 4096
+
+
+# -- K1's mixed body: two frames a complex transform, mixed-radix stages ----
+
+# the speaker preset, a shorter window with an odd hop, and two even n_fft
+# (the even ones spread the kernel's shared-memory index)
+MIXED_CONFIGS = {
+    "speaker": FrontendConfig.speaker(),
+    "win400_hop161": dataclasses.replace(FrontendConfig.speaker(),
+                                         win_length=400, hop_length=161),
+    "n400": dataclasses.replace(FrontendConfig.speaker(), n_fft=400,
+                                win_length=400, hop_length=160),
+    "n1000_win800": dataclasses.replace(FrontendConfig.speaker(), n_fft=1000,
+                                        win_length=800, hop_length=250),
+}
+MIXED_SIZES = [48, 400, 441, 1000, 2187, 3072]
+
+
+class TestMixedBody:
+    @pytest.mark.parametrize("n_fft", MIXED_SIZES)
+    def test_tables(self, n_fft):
+        """The radices multiply to n_fft and are 7, 5, 4, 3 or 2, largest
+        first; the permutation is a bijection; the twiddles are exp(-2 pi i
+        k / n) to 1e-15 and exact at the quarter turns; the window is the
+        centre-padded Hann; the bands rebuild the fp32 filterbank."""
+        win = n_fft if n_fft != 1000 else 800
+        cfg = dataclasses.replace(FrontendConfig.speaker(), n_fft=n_fft,
+                                  win_length=win)
+        tab = mixed_tables(cfg)
+        assert tab.n == n_fft and int(np.prod(tab.radices)) == n_fft
+        assert set(tab.radices) <= {2, 3, 4, 5, 7}
+        assert tab.radices.count(2) <= 1
+        assert list(tab.radices) == sorted(tab.radices, reverse=True)
+        assert tab.radices == mixed_plan(n_fft)
+        assert sorted(tab.pos.tolist()) == list(range(n_fft))
+        assert tab.pos.dtype == np.int32
+        assert tab.window.dtype == np.float64
+        np.testing.assert_array_equal(
+            tab.window, filters.pad_center(filters.hann_window(win), n_fft))
+        k = np.arange(n_fft)
+        assert tab.twiddle.shape == (n_fft, 2)
+        assert tab.twiddle.dtype == np.float64
+        np.testing.assert_allclose(
+            tab.twiddle[:, 0] + 1j * tab.twiddle[:, 1],
+            np.exp(-2j * np.pi * k / n_fft), rtol=0, atol=1e-15)
+        quarter = (4 * k) % n_fft == 0
+        exact = np.array([[1, 0], [0, -1], [-1, 0], [0, 1]], np.float64)
+        np.testing.assert_array_equal(tab.twiddle[quarter],
+                                      exact[(4 * k[quarter]) // n_fft])
+        start, off, w = mel_bands(cfg.sr, n_fft, cfg.n_mels)
+        for a, b in ((tab.band_start, start), (tab.band_off, off),
+                     (tab.band_w, w)):
+            np.testing.assert_array_equal(a, b)
+        mel = np.zeros((cfg.n_mels, cfg.n_freq), np.float32)
+        for b in range(cfg.n_mels):
+            mel[b, start[b]: start[b] + off[b + 1] - off[b]] = \
+                w[off[b]: off[b + 1]]
+        np.testing.assert_array_equal(mel.T, cfg.constants(np.float32)[2])
+
+    @settings(max_examples=30, deadline=None)
+    @given(n_fft=st.sampled_from(MIXED_SIZES), data=st.data())
+    def test_stages_in_any_order_are_an_fft(self, n_fft, data):
+        """For every radix order, the stages (the kernel's dense r-point
+        DFTs with the table's coefficients) leave the DFT of z at pos[k]."""
+        radices = tuple(data.draw(st.permutations(mixed_plan(n_fft))))
+        tab = cuda_mfcc._mixed_tables(n_fft, n_fft, 22050, 128)._replace(
+            radices=radices, pos=stage_permutation(n_fft, radices))
+        rng = np.random.default_rng(n_fft)
+        z = rng.standard_normal(n_fft) + 1j * rng.standard_normal(n_fft)
+        got = cuda_mfcc._butterflies(torch.from_numpy(z), tab).numpy()
+        want = np.fft.fft(z)
+        np.testing.assert_allclose(got[tab.pos], want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+
+    @pytest.mark.parametrize("name", MIXED_CONFIGS)
+    def test_spectrum_matches_dense_dft_f64(self, name):
+        """Real and imaginary parts of every row, 7 rows (so the last pair
+        is half empty), against the float64 dense product: 1e-10 of the
+        row's largest bin."""
+        cfg = MIXED_CONFIGS[name]
+        frames = np.random.default_rng(5).standard_normal((7, cfg.n_fft))
+        got = mixed_spectrum_plain(torch.from_numpy(frames),
+                                   mixed_tables(cfg)).numpy()
+        re, im = _dense_spectrum(frames, cfg)
+        assert got.shape == re.shape == (7, cfg.n_freq)
+        scale = np.abs(re + 1j * im).max(axis=1, keepdims=True)
+        assert (np.abs(got.real - re) <= 1e-10 * scale).all()
+        assert (np.abs(got.imag - im) <= 1e-10 * scale).all()
+        assert np.abs(got.imag[:, 1:cfg.n_freq - 1]).min() > 0
+
+    def test_pair_separation_with_an_odd_frame_count(self):
+        """A row's spectrum does not depend on the row it is packed with:
+        each of 5 rows (a quiet one beside a loud one, and a last row packed
+        with zeros) equals its spectrum computed alone, to 1e-12 of its own
+        largest bin."""
+        cfg = FrontendConfig.speaker()
+        tab = mixed_tables(cfg)
+        frames = np.random.default_rng(3).standard_normal((5, cfg.n_fft))
+        frames[1] *= 1e-3
+        got = mixed_spectrum_plain(torch.from_numpy(frames), tab).numpy()
+        for i in range(5):
+            alone = mixed_spectrum_plain(torch.from_numpy(frames[i:i + 1]),
+                                         tab).numpy()[0]
+            assert np.abs(got[i] - alone).max() <= \
+                1e-12 * np.abs(alone).max()
+
+    @pytest.mark.parametrize("batch", [1, 3])
+    def test_matches_pallas_interpret_and_plain(self, batch):
+        """The speaker preset against the JAX package's Pallas kernel in
+        interpret mode and the fp32 twin, at the bar the plain twin is held
+        to against that kernel: rtol 1e-4 plus 1e-8 of the batch's peak.
+        B = 3 is 303 rows: the last pair holds one row."""
+        cfg, jcfg = _configs("speaker")
+        w = _waves(batch, seed=batch, gap=False)
+        got = mel_power_mixed_plain(torch.from_numpy(w), cfg).numpy()
+        assert got.dtype == np.float32
+        want = np.asarray(mel_power_pallas(w, jcfg, interpret=True))
+        assert got.shape == want.shape == (batch, cfg.num_frames(22050), 128)
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-8 * want.max())
+        plain = mel_power_plain(torch.from_numpy(w), cfg).numpy()
+        np.testing.assert_allclose(got, plain, rtol=1e-4,
+                                   atol=1e-8 * plain.max())
+
+    @pytest.mark.parametrize("name", ["speaker", "win400_hop161"])
+    def test_mel_matches_f64_chain(self, name):
+        """Against the float64 dense chain with float64 constants: 1e-6
+        relative (the power's one rounding to fp32), rows with a silent
+        stretch and a short row included."""
+        cfg = MIXED_CONFIGS[name]
+        w = _waves(3, seed=2)
+        w[2, 9000:] = 0.0
+        got = mel_power_mixed_plain(torch.from_numpy(w), cfg).numpy()
+        frames = frame_signal(
+            torch.from_numpy(np.pad(w.astype(np.float64),
+                                    ((0, 0), (cfg.n_fft // 2,) * 2))),
+            cfg.num_frames(22050), cfg.n_fft, cfg.hop_length).numpy()
+        re, im = _dense_spectrum(frames, cfg)
+        want = (re * re + im * im) @ cfg.constants(np.float32)[2].astype(
+            np.float64)
+        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                   atol=1e-12 * want.max())
+
+    def test_mfcc_matches_jax_oracle_with_lengths(self):
+        """The mixed body's MFCC (its twin + the shared finish) within 5e-4
+        abs of the JAX package's f64 oracle, rows of every length."""
+        cfg, jcfg = _configs("speaker")
+        w, lens = TestMFCC._masked_batch()
+        mel = mel_power_mixed_plain(torch.from_numpy(w), cfg)
+        got = finish_mfcc_from_mel(
+            mel, cfg, torch.from_numpy(lens), 4, cfg.num_frames(22050),
+            device_constants(cfg, torch.device("cpu"))[3]).numpy()
+        for i, n in enumerate(lens[:3]):
+            want = jref.mfcc_fixed_length_ref(
+                w[i, :n], jcfg.utterance_length, n_fft=jcfg.n_fft,
+                hop_length=jcfg.hop_length, win_length=jcfg.win_length)
+            np.testing.assert_allclose(got[i], want, atol=5e-4, rtol=0)
+        assert not got[3].any()  # no frame at length 0 (odd n_fft)
+
+    def test_mfcc_matches_golden(self):
+        """The speaker goldens at 5e-4 abs, the bar the fp32 paths miss on
+        the chirp."""
+        cfg = FrontendConfig.speaker()
+        waves = np.stack([GOLD[f"in_{n}"] for n in GOLD_NAMES])
+        mel = mel_power_mixed_plain(torch.from_numpy(waves), cfg)
+        got = finish_mfcc_from_mel(
+            mel, cfg, None, 3, cfg.num_frames(waves.shape[1]),
+            device_constants(cfg, torch.device("cpu"))[3]).numpy()
+        want = np.stack([GOLD[f"speaker_{n}"] for n in GOLD_NAMES])
+        np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+
+    @pytest.mark.parametrize("rows,want", [(101, 1), (1616, 2), (6464, 8),
+                                           (103424, 8)])
+    def test_pairs_per_block(self, rows, want):
+        """On 132 SMs at the speaker preset: a lone utterance one pair a
+        block, a 16-row bucket two, 64 rows and up eight; two blocks of the
+        chosen size fit one SM's shared memory."""
+        p = pairs_per_block(rows, 441, 132)
+        assert p == want
+        assert 2 * p * (441 * 16 + 2 * 224 * 4) <= 232448
+        # an even n spreads its points: 66 KB a pair at 3072, so one
+        assert pairs_per_block(10 ** 6, 3072, 132) == 1
+        assert pairs_per_block(10 ** 6, 1000, 132) == 4

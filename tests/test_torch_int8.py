@@ -7,6 +7,8 @@ from a seed and handed to both packages; everything runs on the CPU, where
 K4's wrapper is its twin.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +22,12 @@ from asr_using_robust_nn_tpu.ops.pallas_mfcc import (
 )
 from asr_using_robust_nn_tpu_torch.frontend.mfcc import Frontend
 from asr_using_robust_nn_tpu_torch.ops import frontend_ref, mfcc_int8
+from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_bands
 from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_int8 import (
+    _band_tables,
     _digit_constants,
+    chunk_bands,
+    launch_plan,
     mel_power_int8_cuda,
     mel_power_int8_plain,
     mfcc_cuda_int8_batch,
@@ -89,21 +95,96 @@ class TestDigits:
 
     @pytest.mark.parametrize("preset", PRESETS)
     def test_kernel_constants_are_the_padded_transposed_digits(self, preset):
-        """K4's operand: Cr and Ci digitized apart (equal scales), transposed
-        and zero padded to whole 64 x 64 tiles; the group weights are the
-        products of the x and constant scales."""
+        """K4's operand: Cr and Ci digitized apart (equal scales) by the JAX
+        package's own digitizer, zero padded to whole 128-deep steps (the
+        JAX wrapper's n_fft padding) and 64-bin chunks, transposed, and laid
+        out as [Cr_e | Ci_e] tiles of 32 bins each; the group weights are
+        the products of the x and constant scales."""
+        cfg, jcfg = _configs(preset)
+        ct, weights = _digit_constants(cfg, torch.device("cpu"))
+        n_fft_pad = -(-cfg.n_fft // 128) * 128
+        n_freq_pad = -(-cfg.n_freq // 64) * 64
+        assert ct.dtype == torch.int8
+        assert ct.shape == (3, n_freq_pad // 32, 64, n_fft_pad)
+        assert n_fft_pad == (2048 if preset == "digit" else 512)
+        jcr, jci = jcfg.constants(np.float64)[:2]
+        jdigs = (jint8._const_digits(jcr), jint8._const_digits(jci))
+        for side, digs in enumerate(jdigs):
+            got = ct[:, :, 32 * side: 32 * side + 32].reshape(
+                3, n_freq_pad, n_fft_pad).numpy()
+            for e, (d, _) in enumerate(digs):
+                want = np.zeros((n_freq_pad, n_fft_pad), np.int8)
+                want[:cfg.n_freq, :cfg.n_fft] = d.T
+                np.testing.assert_array_equal(got[e], want)
+        assert weights == tuple(2.0 ** -6 * jdigs[0][k][1] for k in range(3))
+
+    @pytest.mark.parametrize("preset,hop,copy", [
+        ("digit", 512, 16), ("speaker", 220, 4), ("speaker", 161, 1),
+        ("digit", 200, 4), ("digit", 520, 4)])
+    @pytest.mark.parametrize("batch,width", [(1, 22050), (3, 9000),
+                                             (1024, 22050), (2, 300)])
+    def test_launch_plan(self, preset, hop, copy, batch, width):
+        """K4's padding, grid and copy width: whole 128-deep steps (the JAX
+        wrapper's padding) and 64-bin chunks; a digit row long enough for
+        every frame's n_fft_pad samples, a multiple of 16 that holds the
+        padded signal; 16-byte copies only when every frame starts
+        16-byte aligned, 4-byte copies when it starts 4-byte aligned."""
+        cfg = dataclasses.replace(getattr(FrontendConfig, preset)(),
+                                  hop_length=hop)
+        plan = launch_plan(cfg, batch, width)
+        assert plan.n_fft_pad % 128 == 0 and plan.n_fft_pad - cfg.n_fft < 128
+        assert plan.n_freq_pad % 64 == 0 and plan.n_freq_pad - cfg.n_freq < 64
+        assert plan.n_frames == cfg.num_frames(width)
+        assert plan.lalloc % 16 == 0
+        assert plan.lalloc >= width + 2 * (cfg.n_fft // 2)
+        assert plan.lalloc >= (plan.n_frames - 1) * hop + plan.n_fft_pad
+        assert plan.grid * 64 >= batch * plan.n_frames > (plan.grid - 1) * 64
+        assert plan.steps == (plan.n_freq_pad // 64) * (plan.n_fft_pad // 128)
+        assert plan.copy_bytes == copy
+        if copy > 1:  # every frame of every row starts aligned
+            starts = (np.arange(batch)[:, None] * plan.lalloc
+                      + np.arange(plan.n_frames)[None] * hop)
+            assert (starts % copy == 0).all()
+
+    @pytest.mark.parametrize("preset", PRESETS)
+    def test_chunk_bands_and_the_banded_fold(self, preset):
+        """Each chunk's [lo, hi) holds every band with a bin in it and no
+        band without one (empty bands excepted); the fold as the kernel
+        runs it (per 64-bin chunk, per touched band, the partial sum of its
+        bins there added to the band's running sum) gives the dense mel
+        product of the twin's power to 1e-6 relative: only the order of
+        non-negative fp32 terms changes."""
         cfg, _ = _configs(preset)
-        ct, mel_p, weights = _digit_constants(cfg, torch.device("cpu"))
-        cr, ci = cfg.constants(np.float64)[:2]
-        digs = mfcc_int8._const_digits(cr) + mfcc_int8._const_digits(ci)
-        assert ct.shape[1] % 64 == 0 and ct.shape[2] % 64 == 0
-        assert ct.shape[2] == (2048 if preset == "digit" else 448)
-        for m, (d, _) in enumerate(digs):
-            np.testing.assert_array_equal(
-                ct[m, :cfg.n_freq, :cfg.n_fft].numpy(), d.T)
-        assert not ct[:, cfg.n_freq:].any() and not ct[:, :, cfg.n_fft:].any()
-        assert not mel_p[cfg.n_freq:].any()
-        assert weights == tuple(2.0 ** -6 * digs[k][1] for k in range(3))
+        start, off, w = mel_bands(cfg.sr, cfg.n_fft, cfg.n_mels)
+        n_freq_pad = launch_plan(cfg, 1, 22050).n_freq_pad
+        chunks = chunk_bands(start, off, n_freq_pad)
+        assert chunks.shape == (n_freq_pad // 64, 2) and chunks.dtype == np.int32
+        length = np.diff(off)
+        for c, (lo, hi) in enumerate(chunks):
+            touch = (length > 0) & (start < 64 * c + 64) & \
+                (start + length > 64 * c)
+            assert touch[lo:hi][length[lo:hi] > 0].all()
+            assert not touch[:lo].any() and not touch[hi:].any()
+        np.testing.assert_array_equal(
+            _band_tables(cfg, torch.device("cpu"))[3].numpy(), chunks)
+
+        w8, _ = _spread_batch()
+        power, f = mfcc_int8.int8_power(torch.from_numpy(w8[:3]), cfg)
+        p = power.reshape(-1, cfg.n_freq).numpy()
+        mel = np.zeros((p.shape[0], cfg.n_mels), np.float32)
+        for c, (lo, hi) in enumerate(chunks):
+            for b in range(lo, hi):
+                i0 = max(start[b], 64 * c)
+                i1 = min(start[b] + length[b], 64 * c + 64)
+                part = np.zeros(p.shape[0], np.float32)
+                for i in range(i0, i1):
+                    part = part + p[:, i] * w[off[b] + i - start[b]]
+                if i1 > i0:
+                    mel[:, b] += part
+        want = (power @ torch.from_numpy(cfg.constants(np.float32)[2])
+                ).reshape(-1, cfg.n_mels).numpy()
+        np.testing.assert_allclose(mel, want, rtol=1e-6,
+                                   atol=1e-30)
 
     def test_reconstruction_exact_for_int16_audio(self):
         """int16-origin audio is represented exactly by the three base-128

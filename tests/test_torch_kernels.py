@@ -75,14 +75,16 @@ def test_k4_k5_reject_what_they_do_not_take(dev, wrapper):
 
 
 def test_k1_bodies_and_what_the_config_refuses(dev):
-    """The FFT body answers the digit preset, the dense body the speaker
-    preset, each with one launch; a hop below 1 or a window longer than
-    n_fft is refused before any launch."""
+    """The FFT body answers the digit preset, the mixed body the speaker
+    preset, the dense body a prime n_fft, each with one launch; a hop below
+    1 or a window longer than n_fft is refused before any launch."""
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import kernel_body
 
     w = torch.zeros((2, 22050), device=dev)
+    prime = dataclasses.replace(FrontendConfig.speaker(), n_fft=401,
+                                win_length=401, hop_length=161)
     for cfg, body in ((FrontendConfig.digit(), "fft"),
-                      (FrontendConfig.speaker(), "dense")):
+                      (FrontendConfig.speaker(), "mixed"), (prime, "dense")):
         assert kernel_body(cfg) == body
         before = mel_power_cuda.launches
         out = mel_power_cuda(w, cfg)  # a silent batch gives zeros
