@@ -1,17 +1,19 @@
 """K5 on Hopper: the fused three-pass bf16 rDFT -> |.|^2 -> mel kernel, its
-wrapper and its plain twin. Counterpart of the JAX package's
+wrapper, its launch plan and its plain twin. Counterpart of the JAX package's
 `ops/pallas_mfcc.py` (`_bf16x3_split`, `mel_power_bf16x3_pallas`,
 `mfcc_pallas_bf16x3_batch`), built for the speaker preset's odd n_fft = 441.
 
-  mel_power_bf16x3_cuda(waves, cfg)   CUDA tensor: center pad, then one
-                                      launch of csrc/dft_power_mel_x3.cu,
-                                      which frames by address arithmetic,
-                                      splits the frames into bf16 hi + lo,
-                                      runs every product as hi@hi + hi@lo +
-                                      lo@hi on the tensor cores with fp32
-                                      sums, squares, splits the power again
-                                      and projects onto the mel bands.
+  mel_power_bf16x3_cuda(waves, cfg)   CUDA tensor: one call of
+                                      csrc/dft_power_mel_x3.cu, which splits
+                                      the center-padded waves into bf16 hi +
+                                      lo planes in one pass, frames them by
+                                      address arithmetic, runs every product
+                                      as hi@hi + hi@lo + lo@hi on wgmma with
+                                      fp32 sums, squares, splits the power
+                                      again and projects onto the mel bands.
                                       CPU tensor: the plain twin.
+  launch_plan(cfg, batch, n_samples)  the padding, grid, copy width and
+                                      shared memory of that call.
   mel_power_bf16x3_plain(waves, cfg)  the same arithmetic in PyTorch (fp32
                                       GEMMs on the bf16 values, whose
                                       products are exact in fp32).
@@ -29,10 +31,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ._build import load_library
 from .cuda_mfcc import _round_up
@@ -47,22 +48,56 @@ from .mfcc_torch import (
 )
 
 __all__ = ["mel_power_bf16x3_cuda", "mel_power_bf16x3_plain",
-           "mfcc_cuda_bf16x3_batch", "KERNEL_SOURCE", "REPLACES"]
+           "mfcc_cuda_bf16x3_batch", "launch_plan", "KERNEL_SOURCE",
+           "REPLACES"]
 
 KERNEL_SOURCE = "asr_using_robust_nn_tpu_torch/csrc/dft_power_mel_x3.cu"
 REPLACES = "asr_using_robust_nn_tpu/ops/pallas_mfcc.py:168"
-# tile sizes the kernel's operands are padded to (csrc/dft_power_mel_x3.cu)
-_K_TILE = 64
-_FREQ_TILE = 64
-_ROW_TILE = 64
+# the kernel's tiles (csrc/dft_power_mel_x3.cu)
+_K_TILE = 64          # depth a step
+_CHUNK = 64           # bins a chunk: two [Cr | Ci] groups
+_GROUP = 32           # bins of one [Cr | Ci] group
+_ROWS = 64            # frame rows a block
+_ALIGN = 8            # split-signal rows: 16-byte aligned
+_MAX_RESIDENT_K = 512  # deeper frames do not stay in shared memory
 _N_MELS = 128
+
+
+class X3Plan(NamedTuple):
+    """One K5 launch, as csrc/dft_power_mel_x3.cu takes it."""
+    n_fft_pad: int    # depth, whole 64-deep steps
+    n_freq_pad: int   # bins, whole 64-bin chunks
+    n_frames: int
+    lalloc: int       # split-signal row length: every frame's n_fft_pad
+    #                   samples, a multiple of 8
+    grid: int         # blocks of 64 frame rows
+    copy_bytes: int   # 16, 8 or 2: how the frames are copied (hop % 8,
+    #                   hop % 4, else)
+    resident: bool    # the block's split frames stay in shared memory
+
+
+def launch_plan(cfg: FrontendConfig, batch: int, n_samples: int) -> X3Plan:
+    """K5's padding, grid, copy width and frame residency for `batch` waves
+    of `n_samples`, from the config alone."""
+    n_frames = cfg.num_frames(n_samples)
+    n_fft_pad = _round_up(cfg.n_fft, _K_TILE)
+    n_freq_pad = _round_up(cfg.n_freq, _CHUNK)
+    lpad = n_samples + 2 * (cfg.n_fft // 2)
+    lalloc = _round_up(
+        max(lpad, (n_frames - 1) * cfg.hop_length + n_fft_pad), _ALIGN)
+    hop = cfg.hop_length
+    return X3Plan(n_fft_pad, n_freq_pad, n_frames, lalloc,
+                  -(-batch * n_frames // _ROWS),
+                  16 if hop % 8 == 0 else 8 if hop % 4 == 0 else 2,
+                  n_fft_pad <= _MAX_RESIDENT_K)
 
 
 @functools.cache
 def _kernel():
     lib = load_library("dft_power_mel_x3")
     fn = lib.asr_dft_power_mel_x3
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,22 +112,29 @@ def _split_constants(cfg: FrontendConfig, device: torch.device):
 
 @functools.lru_cache(maxsize=16)
 def _padded_constants(cfg: FrontendConfig, device: torch.device):
-    """-> (ct (4, n_freq_pad, n_fft_pad) bf16: the transposed Cr_hi, Cr_lo,
-    Ci_hi, Ci_lo; melt (2, n_freq_pad, 128) bf16: Mel^T hi, lo), zero padded
-    to whole kernel tiles. Padded depth columns and bins are zeros and
-    padded bins meet zero mel rows, so the padding adds exact zeros."""
+    """-> (ct (2, n_freq_pad / 32, 64, n_fft_pad) bf16: for hi and lo and
+    each group of 32 bins, the 32 rows of Cr^T, then the same 32 rows of
+    Ci^T (K5's [Cr | Ci] operand tiles); melt (2, 128, n_freq_pad) bf16: Mel
+    hi and lo, bands by bins), zero padded to whole kernel tiles. Padded
+    depth columns and bins are zeros and padded bins meet zero mel columns,
+    so the padding adds exact zeros."""
     cr_hi, cr_lo, ci_hi, ci_lo, mel_hi, mel_lo = _split_constants(cfg, device)
-    n_fft_pad = _round_up(cfg.n_fft, _K_TILE)
-    n_freq_pad = _round_up(cfg.n_freq, _FREQ_TILE)
-    ct = torch.zeros((4, n_freq_pad, n_fft_pad), dtype=torch.bfloat16,
-                     device=device)
-    for m, c in enumerate((cr_hi, cr_lo, ci_hi, ci_lo)):
-        ct[m, : cfg.n_freq, : cfg.n_fft] = c.T
-    melt = torch.zeros((2, n_freq_pad, cfg.n_mels), dtype=torch.bfloat16,
+    plan = launch_plan(cfg, 0, 0)
+    n_fft_pad, n_freq_pad = plan.n_fft_pad, plan.n_freq_pad
+    ct = torch.zeros((2, n_freq_pad // _GROUP, 2, _GROUP, n_fft_pad),
+                     dtype=torch.bfloat16, device=device)
+    for h, (cr, ci) in enumerate(((cr_hi, ci_hi), (cr_lo, ci_lo))):
+        for side, c in enumerate((cr, ci)):
+            t = torch.zeros((n_freq_pad, n_fft_pad), dtype=torch.bfloat16,
+                            device=device)
+            t[: cfg.n_freq, : cfg.n_fft] = c.T
+            ct[h, :, side] = t.view(n_freq_pad // _GROUP, _GROUP, n_fft_pad)
+    melt = torch.zeros((2, cfg.n_mels, n_freq_pad), dtype=torch.bfloat16,
                        device=device)
-    melt[0, : cfg.n_freq] = mel_hi
-    melt[1, : cfg.n_freq] = mel_lo
-    return ct, melt
+    melt[0, :, : cfg.n_freq] = mel_hi.T
+    melt[1, :, : cfg.n_freq] = mel_lo.T
+    return (ct.view(2, n_freq_pad // _GROUP, 2 * _GROUP, n_fft_pad),
+            melt)
 
 
 def mel_power_bf16x3_plain(waves: torch.Tensor,
@@ -120,9 +162,9 @@ def mel_power_bf16x3_cuda(waves: torch.Tensor,
     """Fused three-pass bf16 rDFT + power + mel: (B, L) float32 waves ->
     (B, T, n_mels).
 
-    Applies the librosa center pad, then launches the kernel on the current
-    stream. A CPU tensor goes to `mel_power_bf16x3_plain`; any other device
-    raises.
+    One call of the kernel's C entry on the current stream: the split pass
+    (center pad included), then the fused kernel. A CPU tensor goes to
+    `mel_power_bf16x3_plain`; any other device raises.
     """
     if waves.device.type == "cpu":
         return mel_power_bf16x3_plain(waves, cfg)
@@ -138,30 +180,35 @@ def mel_power_bf16x3_cuda(waves: torch.Tensor,
         raise ValueError(f"mel_power_bf16x3_cuda: the kernel computes "
                          f"{_N_MELS} mel bands, cfg.n_mels={cfg.n_mels}")
     b, n_samples = waves.shape
-    n_frames = cfg.num_frames(n_samples)
-    rows = b * n_frames
+    plan = launch_plan(cfg, b, n_samples)
+    rows = b * plan.n_frames
     if rows == 0:  # nothing to launch
-        return torch.empty((b, n_frames, _N_MELS), device=waves.device)
+        return torch.empty((b, plan.n_frames, _N_MELS), device=waves.device)
     ct, melt = _padded_constants(cfg, waves.device)
-    n_freq_pad, n_fft_pad = ct.shape[1:]
-    ypad = center_pad(waves, cfg)
-    # every frame reads n_fft_pad samples: zeros past the padded signal
-    lalloc = max(ypad.shape[1], (n_frames - 1) * cfg.hop_length + n_fft_pad)
-    ypad = F.pad(ypad, (0, lalloc - ypad.shape[1])).contiguous()
-    # whole 64-row tiles: the kernel stores its fragments straight to `out`
-    out = torch.empty((_round_up(rows, _ROW_TILE), _N_MELS),
-                      dtype=torch.float32, device=waves.device)
+    # the kernel's split pass writes the zero center pad itself; another
+    # pad mode is applied here first
+    if cfg.pad_mode == "constant":
+        src, offset = waves, cfg.n_fft // 2
+    else:
+        src, offset = center_pad(waves, cfg).contiguous(), 0
+    sig = torch.empty((2, b, plan.lalloc), dtype=torch.bfloat16,
+                      device=waves.device)
+    # whole blocks: the kernel stores its registers straight to `out`
+    out = torch.empty((plan.grid * _ROWS, _N_MELS), dtype=torch.float32,
+                      device=waves.device)
     # the CUDA runtime launches on its current device: make it the tensor's
     with torch.cuda.device(waves.device):
         rc = _kernel()(
-            ypad.data_ptr(), ct.data_ptr(), melt.data_ptr(), out.data_ptr(),
-            b, lalloc, n_frames, cfg.hop_length, n_fft_pad, n_freq_pad,
+            src.data_ptr(), ct.data_ptr(), melt.data_ptr(), sig.data_ptr(),
+            out.data_ptr(), b, src.shape[1], offset, plan.lalloc,
+            plan.n_frames, cfg.hop_length, plan.n_fft_pad, plan.n_freq_pad,
+            plan.copy_bytes, int(plan.resident),
             torch.cuda.current_stream(waves.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"dft_power_mel_x3 launch failed: CUDA error {rc}")
     mel_power_bf16x3_cuda.launches += 1
-    return out[:rows].view(b, n_frames, _N_MELS)
+    return out[:rows].view(b, plan.n_frames, _N_MELS)
 
 
 mel_power_bf16x3_cuda.launches = 0

@@ -14,7 +14,9 @@ which raises on failure (the exit code is then non-zero):
            int8_dft_power_mel.cu (K4), dft_power_mel_x3.cu (K5) and
            fused_step.cu (K6) from the checkout, one nvcc each, all started
            together; print the build times and the compiler's
-           register/shared-memory reports;
+           register/shared-memory reports; count the warpgroup MMAs, the
+           asynchronous copies and any warp-level MMA in the SASS of K3,
+           K4, K5 and K6 (a warp-level MMA left fails);
   kernel   K1 (`mel_power_cuda`) against its plain fp32 twin, an f64 chain
            and, where an FFT body runs, its float64 decomposition twin
            (`mel_power_fft_plain`, `mel_power_mixed_plain`), on the card:
@@ -97,7 +99,7 @@ which raises on failure (the exit code is then non-zero):
            TFLOP/s; K6 per step (graph replay, whole call, chain) against
            its twin, K3 per step and the autograd step, and the multi-run
            epoch per run on both backends; K4 and K5 against their twins, K1 and the fp32 chain at
-           1024 rows (K4 also at 256, the featurizer's batch); the
+           1024 rows and at 256, the featurizer's batch; the
            torch.fft.rfft -> abs()**2 -> matmul chain and
            torch.linalg.matrix_norm as library yardsticks; each kernel's
            bound from the H100's peak rates; the prepare path's host decode
@@ -802,6 +804,25 @@ def k45_phase(dev, batches=(1, 3, 16, 64, 256, 1024)):
             print(f"mfcc {preset}: {tag} max_abs vs f64 oracle {err:.3e}, vs "
                   f"goldens {err_g:.3e}; {note}", flush=True)
         out[tag] = res
+    # K5's other instantiations against the twin: 2-byte frame loads (an
+    # odd hop) and the deepest frames that stay resident (n_fft_pad 512)
+    import dataclasses
+
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc_x3 import launch_plan
+    for cfg in (dataclasses.replace(FrontendConfig.speaker(), hop_length=221),
+                dataclasses.replace(FrontendConfig.digit(), n_fft=512,
+                                    win_length=512, hop_length=128)):
+        w = torch.from_numpy(spread_waves(3, seed=3)).to(dev)
+        got = mel_power_bf16x3_cuda(w, cfg)
+        torch.cuda.synchronize()
+        ok, rel, _ = within(got, mel_power_bf16x3_plain(w, cfg),
+                            *K45_BARS["K5"]["twin"])
+        plan = launch_plan(cfg, 3, 22050)
+        print(f"kernel K5 n_fft {cfg.n_fft} hop {cfg.hop_length} (copies "
+              f"{plan.copy_bytes} B, frames resident {plan.resident}): "
+              f"max_rel vs twin {rel:.3e}", flush=True)
+        check(ok, f"K5 at n_fft {cfg.n_fft} hop {cfg.hop_length} disagrees "
+              f"with its twin")
     return out
 
 
@@ -2521,8 +2542,8 @@ def paired_ms(k, p, reps, p_reps=None):
 
 def frontend_timing_phase(dev, prep, batch=1024, reps=3):
     """K4 and K5 against their twins, K1 and the fp32 chain at `batch` rows
-    on their presets (K4 also at 256), the rfft chain, every frontend
-    kernel's bound, and the prepare path's decode and device shares."""
+    and at 256 on their presets, the rfft chain, every frontend kernel's
+    bound, and the prepare path's decode and device shares."""
     import torch
     from asr_using_robust_nn_tpu_torch.frontend.mfcc import Frontend
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import (
@@ -2538,7 +2559,7 @@ def frontend_timing_phase(dev, prep, batch=1024, reps=3):
     cases = (("K4", "digit", mel_power_int8_cuda, mel_power_int8_plain,
               (batch, 256)),
              ("K5", "speaker", mel_power_bf16x3_cuda, mel_power_bf16x3_plain,
-              (batch,)))
+              (batch, 256)))
     for tag, preset, kernel, plain, sizes in cases:
         cfg = getattr(FrontendConfig, preset)()
         for b in sizes:
@@ -2645,8 +2666,9 @@ def library_phase(dev, k3_args, reps=5):
 
 def sass_census(name):
     """How many warpgroup MMAs (HGMMA: floating point, IGMMA: integer),
-    asynchronous global-to-shared copies (LDGSTS: cp.async) and warp-level
-    MMAs (HMMA, IMMA: mma.sync / WMMA) the compiled `csrc/<name>.cu` holds,
+    asynchronous global-to-shared copies (LDGSTS: cp.async; UTMALDG: TMA)
+    and warp-level MMAs (HMMA, IMMA: mma.sync / WMMA) the compiled
+    `csrc/<name>.cu` holds,
     by the cuobjdump that ships beside nvcc (or the one on the PATH); raises
     without it."""
     import shutil
@@ -2662,14 +2684,14 @@ def sass_census(name):
     sass = subprocess.run([tool, "-sass", str(_library_path(name))],
                           check=True, capture_output=True, text=True).stdout
     return {k: sass.count(k + ".") + sass.count(k + " ")
-            for k in ("HGMMA", "IGMMA", "LDGSTS", "HMMA", "IMMA")}
+            for k in ("HGMMA", "IGMMA", "LDGSTS", "UTMALDG", "HMMA", "IMMA")}
 
 
 def build_all():
     """One nvcc per kernel source, all started together; holds the launch
     plan's constants to the built fused_epoch library. Returns a function
-    that waits for the SASS census of the two fused libraries and K4's
-    (cuobjdump runs beside the next phase) and checks it."""
+    that waits for the SASS census of the two fused libraries, K4's and
+    K5's (cuobjdump runs beside the next phase) and checks it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from asr_using_robust_nn_tpu_torch.ops import cuda_train
@@ -2689,7 +2711,8 @@ def build_all():
     print(f"build: fused_epoch.cu has the launch plan's geometry; shared "
           f"memory a block, bytes: "
           f"{cuda_train.kernel_geometry(cuda_train._lib())}", flush=True)
-    fused = ("fused_epoch", "fused_step", "int8_dft_power_mel")
+    fused = ("fused_epoch", "fused_step", "int8_dft_power_mel",
+             "dft_power_mel_x3")
     pool = ThreadPoolExecutor(len(fused))
     pending = [pool.submit(sass_census, n) for n in fused]
 
@@ -2698,10 +2721,10 @@ def build_all():
             census = fut.result()
             print(f"build: SASS of {n}.cu (cuobjdump): {census}", flush=True)
             check(census["HGMMA"] + census["IGMMA"] > 0
-                  and census["LDGSTS"] > 0
+                  and census["LDGSTS"] + census["UTMALDG"] > 0
                   and census["HMMA"] + census["IMMA"] == 0,
-                  f"{n}.cu: its GEMMs must be wgmma from a cp.async ring, "
-                  f"with no warp-level MMA left: {census}")
+                  f"{n}.cu: its GEMMs must be wgmma from a cp.async or TMA "
+                  f"ring, with no warp-level MMA left: {census}")
         pool.shutdown()
 
     return finish_census
@@ -2899,7 +2922,19 @@ def main() -> int:
         "library_ms": None, "library_chain_ms": k5t["rfft_chain_ms"],
         "k1_ms": k5t["k1_ms"], "fp32_chain_ms": k5t["fp32_chain_ms"],
         "shape": "speaker bucket 1024 (103424 frames x 441 x 221)",
+        "design": "one warpgroup a block of 64 frame rows, 64-bin chunks; "
+                  "the waves split into bf16 hi / lo planes by one pass; "
+                  "the block's split frames resident in shared memory "
+                  "(speaker); wgmma m64n128k16 from a 3-stage cp.async ring "
+                  "on [Cr|Ci] tiles, three passes into one accumulator, "
+                  "one step's products left in flight; power in registers, "
+                  "mel by wgmma with A from registers",
         "tflops_bf16": k5t["tops"],
+        "b256_ms": ftime["K5_256"]["ms"],
+        "b256_plain_ms": ftime["K5_256"]["plain_ms"],
+        "b256_k1_ms": ftime["K5_256"]["k1_ms"],
+        "b256_bound_ms": ftime["K5_256"]["bound_ms"],
+        "b256_library_chain_ms": ftime["K5_256"]["rfft_chain_ms"],
     }, {
         "name": "fused_step", "route": "cuda",
         "source": cuda_step.KERNEL_SOURCE, "replaces": cuda_step.REPLACES,
