@@ -1,13 +1,23 @@
-"""Command line of the PyTorch port. One subcommand so far, the
-counterpart of the JAX package's `asrtpu prepare-data`:
+"""Command line of the PyTorch port, the counterpart of the JAX package's
+`asrtpu`:
 
   python -m asr_using_robust_nn_tpu_torch.cli.main prepare-data \
       --task digit --data-dir data/ --out-dir processed/
+  ... train --task digit --variant constrained --data processed/ \
+      --constraint simple --rho 0.1 --ckpt runs/digit_c
+  ... evaluate --task digit --variant constrained --data processed/ \
+      --ckpt runs/digit_c
+  ... infer --task digit --variant constrained --ckpt runs/digit_c \
+      --data processed/ --audio some_dir/
+  ... certify --data processed/ --constrained runs/digit_c \
+      --unconstrained runs/digit_u
 
-It walks `<data-dir>/<class>/*.wav`, splits 70/20/10 by `--seed`, featurizes
-on `--device` (default `cuda`; there is no quiet step down to the CPU) with
-the frontend `--backend`, writes the six .npy artifacts plus the audio attack
-set, and prints one JSON line with the split shapes.
+Every subcommand runs on `--device` (default `cuda`, an error where there
+is none; `--device cpu` for the CPU). A checkpoint is a store dir written by
+`train --ckpt` (`best.npz` + `meta.json`, train/checkpoints.py) or a Keras
+layout `.h5` (read and written only where h5py is installed). Not ported
+yet: `train-multi`, `attack`, `dolphin`, `bench` and `profile` (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -17,9 +27,21 @@ import json
 import os
 import sys
 
+import numpy as np
+
 from ..frontend.mfcc import Frontend
 
-__all__ = ["main"]
+__all__ = ["main", "model_cfg_for", "load_model"]
+
+# the JAX package's attacks/sweeps.py GRIDS["fgsm_eps_std"]: FGSM strengths
+# on standardized features, the default L-inf certificate grid
+_FGSM_EPS_STD = np.linspace(0.01, 0.3, 10)
+
+
+def _add_device(p):
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, an error where there "
+                        "is none; 'cpu' for the CPU)")
 
 
 def _add_prepare(sub):
@@ -30,9 +52,164 @@ def _add_prepare(sub):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", default="cuda",
                    choices=sorted(Frontend._BACKENDS))
-    p.add_argument("--device", default=None,
-                   help="torch device of the frontend (default: cuda, an "
-                        "error where there is none; 'cpu' for the CPU)")
+    _add_device(p)
+
+
+def _add_train(sub):
+    p = sub.add_parser("train", help="train a model variant")
+    p.add_argument("--config", default=None,
+                   help="JSON config (see configs/) providing defaults for "
+                        "the flags below; explicit flags win")
+    # merge-relevant flags default to None so that only explicit flags
+    # override `--config`; hard defaults resolve in cmd_train after the merge
+    p.add_argument("--task", choices=["digit", "speaker"], required=False)
+    p.add_argument("--variant", choices=["unconstrained", "constrained"],
+                   default=None)
+    p.add_argument("--data", required=True,
+                   help="artifact dir from prepare-data")
+    p.add_argument("--ckpt", required=True, help="checkpoint dir")
+    p.add_argument("--constraint",
+                   choices=["simple", "norm", "fista", "custom", "none"],
+                   default=None,
+                   help="projection algorithm for --variant constrained "
+                        "(reference known-good: simple)")
+    p.add_argument("--rho", type=float, default=None,
+                   help="Lipschitz target (defaults: digit 0.1, speaker 1.0)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--patience", type=int, default=None,
+                   help="early-stopping patience (reference per-script values "
+                        "by default)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--data-parallel", action="store_true",
+                   help="train over all visible devices (not ported yet)")
+    p.add_argument("--device-resident", action="store_true",
+                   help="keep the whole split on the device and run each "
+                        "epoch as one program (train/epoch_scan.py, or the "
+                        "fused epoch K3)")
+    p.add_argument("--epochs-per-dispatch", type=int, default=None,
+                   help="device-resident only: E epochs per call (history "
+                        "and early stopping move in steps of E)")
+    p.add_argument("--epoch-backend", choices=["auto", "plain", "fused"],
+                   default=None,
+                   help="device-resident epoch: 'fused' = K3, the fused "
+                        "epoch (one CUDA graph of hand-written kernels, "
+                        "held against the plain epoch once per process); "
+                        "'plain' = autograd; 'auto' = fused on a CUDA device "
+                        "for a fresh run of the full simple_norm or no "
+                        "constraint (default)")
+    p.add_argument("--no-standardize", action="store_true")
+    p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--monitor-lipschitz", action="store_true")
+    p.add_argument("--export-h5", default=None,
+                   help="also export the best weights to .h5 (needs h5py)")
+    p.add_argument("--resume", action="store_true",
+                   help="start from the best checkpoint already in --ckpt, "
+                        "continuing its Adam state and best val_loss")
+    p.add_argument("--metrics-dir", default=None,
+                   help="write per-epoch scalars here (metrics.jsonl, and "
+                        "TensorBoard events where it imports)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 operands in every Dense GEMM, fp32 sums and "
+                        "master weights (models/mlp.py MLPConfig.with_bf16)")
+    _add_device(p)
+
+
+def _add_certify(sub):
+    p = sub.add_parser(
+        "certify",
+        help="certified-accuracy curves from the sound Lipschitz bound "
+             "(constraints/certify.py): a provable lower bound on accuracy "
+             "under any attack in the norm ball")
+    p.add_argument("--task", choices=["digit", "speaker"], default="digit")
+    p.add_argument("--data", required=True)
+    p.add_argument("--constrained", required=True, help="ckpt dir or .h5")
+    p.add_argument("--unconstrained", required=True, help="ckpt dir or .h5")
+    p.add_argument("--norm", choices=["l2", "linf"], default="l2",
+                   help="perturbation ball; linf uses the sqrt(d) "
+                        "containment")
+    p.add_argument("--strengths", default=None,
+                   help="comma-separated eps grid (default: the fgsm "
+                        "standardized grid for linf, 10 points to the "
+                        "90th-percentile certified radius for l2)")
+    p.add_argument("--out", default=None, help="write curves JSON here")
+    p.add_argument("--plot", default=None, help="write comparison plot PNG")
+    _add_device(p)
+
+
+def _add_infer(sub):
+    p = sub.add_parser(
+        "infer",
+        help="classify WAV files end to end (decode -> MFCC (K1 on the "
+             "card) -> standardize -> predict, padded to a bucket ladder; "
+             "serve/engine.py)")
+    p.add_argument("--task", choices=["digit", "speaker"], default="digit")
+    p.add_argument("--variant", choices=["unconstrained", "constrained"],
+                   default="unconstrained")
+    p.add_argument("--ckpt", required=True,
+                   help="checkpoint store dir (train --ckpt) or Keras .h5")
+    p.add_argument("--data", default=None,
+                   help="prepare-data artifact dir, used to re-derive the "
+                        "train-time scaler moments (required unless "
+                        "--no-standardize)")
+    p.add_argument("--no-standardize", action="store_true")
+    p.add_argument("--audio", required=True, nargs="+",
+                   help="WAV file(s) and/or directories of WAVs")
+    p.add_argument("--agg", choices=["none", "vote", "mean"], default=None,
+                   help="long-recording aggregation: slice into 1-s windows "
+                        "and majority-vote or mean-probability per file; "
+                        "default vote for --task speaker, none for digit")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every padding bucket once first and report "
+                        "warm serving latency percentiles")
+    p.add_argument("--buckets", default=None,
+                   help="comma-separated ascending batch-padding ladder "
+                        "(default 16,64,256,1024)")
+    _add_device(p)
+
+
+def _add_eval(sub):
+    p = sub.add_parser("evaluate", help="clean test eval + confusion matrix")
+    p.add_argument("--task", choices=["digit", "speaker"], default="digit")
+    p.add_argument("--data", required=True)
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--variant", choices=["unconstrained", "constrained"],
+                   default="unconstrained")
+    p.add_argument("--no-standardize", action="store_true")
+    p.add_argument("--plot", default=None,
+                   help="write a confusion-matrix heatmap PNG")
+    _add_device(p)
+
+
+def model_cfg_for(task: str, variant: str):
+    from ..models.mlp import MLPConfig
+
+    return {
+        ("digit", "unconstrained"): MLPConfig.digit_unconstrained,
+        ("digit", "constrained"): MLPConfig.digit_constrained,
+        ("speaker", "unconstrained"): MLPConfig.speaker_unconstrained,
+        ("speaker", "constrained"): MLPConfig.speaker_constrained,
+    }[(task, variant)]()
+
+
+def load_model(path, cfg):
+    """(params, state) as numpy trees from a checkpoint store dir or a
+    Keras-layout .h5 (`serve/engine.py::load_checkpoint`); a missing or
+    mismatched checkpoint exits with its message."""
+    from ..serve.engine import load_checkpoint
+
+    try:
+        return load_checkpoint(path, cfg)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}")
+
+
+def _need_artifacts(data) -> bool:
+    if os.path.exists(os.path.join(data, "train_data.npy")):
+        return True
+    print(f"error: {data!r} has no train_data.npy — run `prepare-data` "
+          f"first", file=sys.stderr)
+    return False
 
 
 def cmd_prepare(args):
@@ -64,14 +241,362 @@ def cmd_prepare(args):
     return 0
 
 
+# reference per-script defaults (batch size, early-stopping patience)
+_REF_DEFAULTS = {
+    ("digit", "unconstrained"): dict(batch=256, patience=200),
+    ("digit", "constrained"): dict(batch=512, patience=6000),
+    ("speaker", "unconstrained"): dict(batch=64, patience=10),
+    ("speaker", "constrained"): dict(batch=64, patience=2000),
+}
+_REF_RHO = {"digit": 0.1, "speaker": 1.0}
+
+_TRAIN_CONF_KEYS = {
+    "task": ("digit", "speaker"),
+    "variant": ("unconstrained", "constrained"),
+    "constraint": ("simple", "norm", "fista", "custom", "none"),
+    "rho": None, "epochs": None, "patience": None, "batch_size": None,
+    "seed": None, "log_every": None, "data_parallel": None,
+    "device_resident": None, "monitor_lipschitz": None,
+    "no_standardize": None, "epochs_per_dispatch": None, "bf16": None,
+    "epoch_backend": ("auto", "plain", "fused"),
+}
+
+
+def _merge_config(args) -> int:
+    """Fill unset flags from `--config`; -> 0, or 2 after printing why the
+    config was refused."""
+    with open(args.config) as f:
+        conf = {k.replace("-", "_"): v for k, v in json.load(f).items()
+                if not k.startswith("_")}
+    unknown = set(conf) - set(_TRAIN_CONF_KEYS)
+    if unknown:
+        print(f"error: unknown config keys {sorted(unknown)} in "
+              f"{args.config!r} (known: {sorted(_TRAIN_CONF_KEYS)})",
+              file=sys.stderr)
+        return 2
+    for k, v in conf.items():
+        allowed = _TRAIN_CONF_KEYS[k]
+        if allowed is not None and v not in allowed:
+            print(f"error: config {k}={v!r} not in {allowed}",
+                  file=sys.stderr)
+            return 2
+        # explicit flags win; the config fills None sentinels and False
+        # store_true flags. Identity checks, not ==: 0 == False, and an
+        # explicit --seed 0 must not be replaced by the config's.
+        cur = getattr(args, k, None)
+        if cur is None or cur is False:
+            setattr(args, k, v)
+    return 0
+
+
+def cmd_train(args):
+    if args.config and _merge_config(args):
+        return 2
+    if not args.task:
+        print("error: --task required (or provide it via --config)",
+              file=sys.stderr)
+        return 2
+    for k, v in (("variant", "unconstrained"), ("constraint", "simple"),
+                 ("epochs", 10000), ("seed", 0), ("log_every", 1),
+                 ("epoch_backend", "auto")):
+        if getattr(args, k) is None:
+            setattr(args, k, v)
+    if args.data_parallel:
+        raise NotImplementedError(
+            "--data-parallel: training over several devices is not ported "
+            "yet (ROADMAP.md queue 1 item 10, the parallel slice)")
+    import torch
+
+    from ..constraints import (lipschitz_monitor, make_custom_constraint,
+                               make_fista_constraint, make_norm_constraint,
+                               make_simple_norm_constraint)
+    from ..data.pipeline import load_artifacts, standardize_fit_all
+    from ..models.convert import adam_state_from_numpy, params_from_numpy
+    from ..models.mlp import init_mlp
+    from ..train.checkpoints import (CheckpointManager, export_h5,
+                                     require_h5py, validate_model_tree)
+    from ..train.trainer import TrainConfig, Trainer
+    from ..utils.device import resolve_device
+
+    if not _need_artifacts(args.data):
+        return 2
+    if args.export_h5:
+        try:  # refuse before training, not after it
+            require_h5py()
+        except RuntimeError as e:
+            print(f"error: --export-h5: {e}", file=sys.stderr)
+            return 2
+    store = os.path.join(args.ckpt, "best.npz")
+    if args.resume and not os.path.exists(store):
+        # an explicit resume that cannot be honored must not fall through
+        # to a from-scratch run
+        print(f"error: --resume requested but {args.ckpt!r} has no "
+              f"'best.npz' checkpoint (wrong --ckpt, or nothing saved yet?)",
+              file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    d = load_artifacts(args.data)
+    if args.no_standardize:
+        tr, dv, te = d.train_data, d.dev_data, d.test_data
+    else:
+        tr, dv, te, _, _ = standardize_fit_all(d.train_data, d.dev_data,
+                                               d.test_data)
+
+    cfg = model_cfg_for(args.task, args.variant)
+    if args.bf16:
+        cfg = cfg.with_bf16()
+    defaults = _REF_DEFAULTS[(args.task, args.variant)]
+    batch = args.batch_size or defaults["batch"]
+    patience = (args.patience if args.patience is not None
+                else defaults["patience"])
+
+    constraint = cstate = None
+    if args.variant == "constrained" and args.constraint != "none":
+        rho = args.rho if args.rho is not None else _REF_RHO[args.task]
+        con = {
+            "simple": lambda: make_simple_norm_constraint(rho),
+            "norm": lambda: make_norm_constraint(rho),
+            "fista": lambda: make_fista_constraint(rho, nit=2),
+            "custom": lambda: make_custom_constraint(rho),
+        }[args.constraint]()
+        # every constraint's state depends on the kernels' shapes only
+        p0, _ = init_mlp(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        constraint, cstate = con.apply, con.init(p0)
+
+    tcfg = TrainConfig(batch_size=batch, epochs=args.epochs,
+                       patience=patience, seed=args.seed,
+                       log_every=args.log_every,
+                       device_resident=bool(args.device_resident),
+                       epochs_per_dispatch=args.epochs_per_dispatch or 1,
+                       epoch_backend=args.epoch_backend)
+    callbacks = (lipschitz_monitor(cfg),) if args.monitor_lipschitz else ()
+    trainer = Trainer(cfg, tcfg, constraint=constraint,
+                      constraint_state=cstate, epoch_callbacks=callbacks,
+                      device=dev)
+    init_params = init_state = init_opt = best0 = None
+    if args.resume:
+        tree, meta = CheckpointManager(args.ckpt).load_best()
+        try:
+            validate_model_tree(tree["params"], tree["state"], cfg)
+        except ValueError as e:
+            raise SystemExit(f"error: --resume checkpoint mismatch: {e}")
+        init_params, init_state = params_from_numpy(tree["params"],
+                                                    tree["state"], dev)
+        # continue the Adam trajectory, and seed best-val tracking with the
+        # stored val_loss so a worse resumed epoch cannot replace the best
+        o = tree["opt_state"]
+        init_opt = adam_state_from_numpy(
+            o["count"], o["mu"], o["nu"], device=dev,
+            moments_dtype=trainer.optimizer.moments_dtype)
+        best0 = meta.get("val_loss")
+        print(f"resumed from {args.ckpt} (epoch {meta.get('epoch')}, "
+              f"val_loss {best0})")
+    res = trainer.fit(tr, d.train_label, dv, d.dev_label,
+                      params=init_params, state=init_state,
+                      opt_state=init_opt, initial_best_val=best0,
+                      checkpoint_dir=args.ckpt, metrics_dir=args.metrics_dir)
+    print(f"epoch backend: {res['epoch_backend']}")
+    test_loss, test_acc = trainer.evaluate(
+        *params_from_numpy(res["best_params"], res["best_state"], dev),
+        te, d.test_label)
+    print(f"Test loss: {test_loss} / Test accuracy: {test_acc}")
+    if args.export_h5:
+        export_h5(args.export_h5, res["best_params"], res["best_state"])
+    print(json.dumps({
+        "epochs_run": res["epochs_run"],
+        "best_val_loss": res["best_val_loss"],
+        "test_loss": test_loss,
+        "test_accuracy": test_acc,
+        "examples_per_sec": res["examples_per_sec"],
+        "epoch_backend": res["epoch_backend"],
+        "fit_seconds": res["seconds"],
+        "checkpoint_writes": res["checkpoint_writes"],
+        "checkpoint_seconds": res["checkpoint_seconds"],
+        "ckpt": args.ckpt,
+    }))
+    return 0
+
+
+def cmd_evaluate(args):
+    from ..data.pipeline import load_artifacts, standardize_fit_all
+    from ..models.convert import params_from_numpy
+    from ..train.trainer import TrainConfig, Trainer
+    from ..utils.device import resolve_device
+
+    if not _need_artifacts(args.data):
+        return 2
+    d = load_artifacts(args.data)
+    if args.no_standardize:
+        te = d.test_data
+    else:
+        _, _, te, _, _ = standardize_fit_all(d.train_data, d.dev_data,
+                                             d.test_data)
+    cfg = model_cfg_for(args.task, args.variant)
+    dev = resolve_device(args.device)
+    params, state = params_from_numpy(*load_model(args.ckpt, cfg), dev)
+    trainer = Trainer(cfg, TrainConfig(batch_size=256), device=dev)
+    loss, acc = trainer.evaluate(params, state, te, d.test_label)
+    pred = np.argmax(trainer.predict(params, state, te), axis=1)
+    n = cfg.n_classes
+    conf = np.zeros((n, n), dtype=np.int64)
+    np.add.at(conf, (np.asarray(d.test_label, dtype=int), pred), 1)
+    print(f"Test loss: {loss} / Test accuracy: {acc}")
+    print(conf)
+    if args.plot:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        im = ax.imshow(conf, cmap="viridis")
+        fig.colorbar(im)
+        ax.set_title("Confusion Matrix")
+        ax.set_xlabel("predicted")
+        ax.set_ylabel("true")
+        fig.savefig(args.plot, dpi=120)
+    print(json.dumps({"test_loss": loss, "test_accuracy": acc,
+                      "confusion_matrix": conf.tolist()}))
+    return 0
+
+
+def cmd_infer(args):
+    from ..serve.engine import InferenceEngine
+
+    kw = {}
+    if args.buckets is not None:
+        try:
+            kw["buckets"] = tuple(int(b) for b in args.buckets.split(","))
+        except ValueError:
+            print(f"error: --buckets must be comma-separated ints, got "
+                  f"{args.buckets!r}", file=sys.stderr)
+            return 2
+    standardize = not args.no_standardize
+    if standardize and args.data is None:
+        print("error: --data (the training artifact dir) is required to "
+              "re-derive the scaler; pass --no-standardize for models "
+              "trained on raw features", file=sys.stderr)
+        return 2
+    paths = []
+    for a in args.audio:
+        if os.path.isdir(a):
+            found = sorted(os.path.join(a, f) for f in os.listdir(a)
+                           if f.lower().endswith(".wav"))
+            if not found:
+                print(f"error: no .wav files under {a!r}", file=sys.stderr)
+                return 2
+            paths.extend(found)
+        elif os.path.exists(a):
+            paths.append(a)
+        else:
+            print(f"error: {a!r} is neither a WAV file nor a directory",
+                  file=sys.stderr)
+            return 2
+    try:
+        engine = InferenceEngine.from_checkpoint(
+            args.task, args.variant, args.ckpt, artifacts_dir=args.data,
+            standardize=standardize, device=args.device, **kw)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    agg = args.agg if args.agg is not None else (
+        "vote" if args.task == "speaker" else "none")
+    if args.warmup:
+        engine.warmup()
+    results = engine.classify_files(paths, agg=None if agg == "none" else agg)
+    out = []
+    for r in results:
+        rec = {"path": r["path"],
+               "label": None if r["label"] is None else int(r["label"])}
+        if "n_windows" in r:
+            rec["n_windows"] = r["n_windows"]
+            rec["window_labels"] = [int(v) for v in r["window_labels"]]
+        if r["label"] is not None:
+            p = r["probs"]
+            rec["confidence"] = float(
+                p.mean(axis=0)[r["label"]] if p.ndim == 2 else p[r["label"]])
+        print(f"{rec['path']}: label={rec['label']}"
+              + (f" windows={rec['n_windows']}" if "n_windows" in rec
+                 else ""))
+        out.append(rec)
+    print(json.dumps({
+        "results": out, "n_files": len(out), "task": args.task,
+        "variant": args.variant, "aggregation": agg,
+        "frontend_backend": engine._fe.backend,
+        "latency": engine.latency_stats(),
+    }))
+    return 0
+
+
+def cmd_certify(args):
+    from ..constraints.certify import certified_radii, certify_sweep
+    from ..data.pipeline import load_artifacts, standardize_fit_all
+
+    if not _need_artifacts(args.data):
+        return 2
+    d = load_artifacts(args.data)
+    cfg_c = model_cfg_for(args.task, "constrained")
+    cfg_u = model_cfg_for(args.task, "unconstrained")
+    pc, sc = load_model(args.constrained, cfg_c)
+    pu, su = load_model(args.unconstrained, cfg_u)
+    # the certificate lives in the space the model consumes: standardized
+    # features
+    _, _, te, _, _ = standardize_fit_all(d.train_data, d.dev_data,
+                                         d.test_data)
+    if args.strengths:
+        eps = [float(s) for s in args.strengths.split(",")]
+    elif args.norm == "linf":
+        eps = [0.0] + list(_FGSM_EPS_STD)
+    else:
+        # scale the grid to where the certificates live, for both models, so
+        # a degenerate one cannot collapse it
+        tops = []
+        for cfg_m, pm, sm in ((cfg_c, pc, sc), (cfg_u, pu, su)):
+            rm, cm, _ = certified_radii(cfg_m, pm, sm, te, d.test_label,
+                                        device=args.device)
+            if cm.any():
+                tops.append(float(np.percentile(rm[cm], 90)))
+        eps = list(np.linspace(0.0, max(tops + [1e-6]), 10))
+    res = certify_sweep(cfg_c, pc, sc, cfg_u, pu, su, te, d.test_label, eps,
+                        norm=args.norm, device=args.device)
+    for s, ac, au in zip(res.strengths, res.certified_constrained,
+                         res.certified_unconstrained):
+        print(f"eps={s:.6g}: certified constrained={ac * 100:.2f}% "
+              f"unconstrained={au * 100:.2f}%")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res.as_dict(), f, indent=2)
+    if args.plot:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        ax = res.plot()
+        ax.figure.savefig(args.plot, dpi=120)
+    print(json.dumps(res.as_dict()))
+    return 0
+
+
+# registration and dispatch in one table, so a subcommand cannot be parsed
+# and then left undispatched
+_SUBCOMMANDS = {
+    "prepare-data": (_add_prepare, cmd_prepare),
+    "train": (_add_train, cmd_train),
+    "evaluate": (_add_eval, cmd_evaluate),
+    "infer": (_add_infer, cmd_infer),
+    "certify": (_add_certify, cmd_certify),
+}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="asr_using_robust_nn_tpu_torch",
         description="PyTorch/CUDA port of the robust-ASR framework")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    _add_prepare(sub)
+    for add, _ in _SUBCOMMANDS.values():
+        add(sub)
     args = parser.parse_args(argv)
-    return {"prepare-data": cmd_prepare}[args.cmd](args)
+    return _SUBCOMMANDS[args.cmd][1](args) or 0
 
 
 if __name__ == "__main__":

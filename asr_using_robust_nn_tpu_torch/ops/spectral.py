@@ -1,7 +1,8 @@
-"""Product spectral norm by power iteration, in plain PyTorch.
+"""Spectral norms by power iteration, in plain PyTorch.
 
-Counterpart of the JAX package's `ops/spectral.py::
-product_spectral_norm_with_state`. It is also the plain twin of K2
+Counterpart of the JAX package's `ops/spectral.py`:
+`spectral_norm_with_state` (one matrix, the per-layer norm constraint) and
+`product_spectral_norm_with_state`. The latter is also the plain twin of K2
 (`ops/cuda_spectral.py`): with `matvec_dtype=torch.bfloat16` the kernels are
 rounded to bf16 once, the vector is rounded to bf16 before every link, and
 each matvec sums its bf16-exact products in fp32.
@@ -9,11 +10,49 @@ each matvec sums its bf16-exact products in fp32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["product_spectral_norm_with_state"]
+__all__ = ["spectral_norm_with_state", "product_spectral_norm_with_state",
+           "no_tf32"]
 
 _EPS = 1e-12
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """CUDA matmuls in fp32, never TF32; the caller's setting is restored."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.sqrt(torch.sum(v * v)) + _EPS)
+
+
+def spectral_norm_with_state(
+    w: torch.Tensor, u: torch.Tensor | None = None, n_iter: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sigma, u_next): the largest singular value of a 2-D `w` by power
+    iteration with a persistent left vector `u` of shape (w.shape[0],),
+    carried across train steps so a few rounds a step suffice. Without `u`
+    the start is a seeded normal draw (the JAX package's differs)."""
+    if u is None:
+        gen = torch.Generator(device=w.device).manual_seed(
+            w.shape[0] * 7919 + w.shape[1])
+        u = torch.randn(w.shape[0], generator=gen, device=w.device,
+                        dtype=w.dtype)
+    with no_tf32():
+        u = _l2_normalize(u)
+        for _ in range(n_iter):
+            u = _l2_normalize(w @ _l2_normalize(w.T @ u))
+        v = _l2_normalize(w.T @ u)
+        return u @ (w @ v), u
 
 
 def product_spectral_norm_with_state(
@@ -29,12 +68,8 @@ def product_spectral_norm_with_state(
     last round. CUDA matmuls run without TF32; the caller's setting is
     restored on return.
     """
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 sums, never TF32
-    try:
+    with no_tf32():
         return _power_iteration(ws, u, n_iter, eps, matvec_dtype)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _power_iteration(ws, u, n_iter, eps, matvec_dtype):

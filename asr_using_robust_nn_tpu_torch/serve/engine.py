@@ -19,6 +19,7 @@ probability.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -30,11 +31,32 @@ from ..models.mlp import MLPConfig, apply_mlp
 from ..ops.mfcc_torch import FrontendConfig
 from ..utils.device import resolve_device
 
-__all__ = ["InferenceEngine"]
+__all__ = ["InferenceEngine", "load_checkpoint"]
 
 # powers-of-4 ladder: at most ~4x padded waste per request, 4 shapes cover
 # 1..1024 rows; larger requests run in max-bucket chunks
 _DEFAULT_BUCKETS = (16, 64, 256, 1024)
+
+
+def load_checkpoint(path, cfg: MLPConfig):
+    """(params, state) as numpy trees from a checkpoint store dir
+    (`<path>/best.npz`, train/checkpoints.py) or a Keras-layout .h5, checked
+    against `cfg`. The library form of the CLI's `load_model`: it raises
+    ValueError where the CLI exits with a message."""
+    from ..train.checkpoints import (CheckpointManager, import_keras_h5,
+                                     validate_model_tree)
+
+    if str(path).endswith(".h5"):
+        if not os.path.exists(path):
+            raise ValueError(f"checkpoint file {path!r} not found")
+        return import_keras_h5(path, cfg)
+    if not os.path.exists(os.path.join(str(path), "best.npz")):
+        raise ValueError(
+            f"no checkpoint at {path!r} (expected a store dir with "
+            f"'best.npz' written by `train --ckpt`, or a .h5 file)")
+    tree, _ = CheckpointManager(path).load_best()
+    validate_model_tree(tree["params"], tree["state"], cfg)
+    return tree["params"], tree["state"]
 
 
 class InferenceEngine:
@@ -81,6 +103,41 @@ class InferenceEngine:
             self._scaler = None
         self.latencies_s: list[float] = []  # per classify() call, warm only
         self._warm: set[tuple[int, str]] = set()
+
+    # -- construction helpers ------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, task: str, variant: str, ckpt_path,
+                        artifacts_dir=None, standardize: bool = True,
+                        **kw) -> "InferenceEngine":
+        """An engine from a trained checkpoint (store dir or .h5).
+        `artifacts_dir` (the `prepare-data` output the model was trained on)
+        re-derives the fit-on-all scaler moments; pass standardize=False for
+        a model trained on raw features. `kw` goes to the constructor
+        (buckets, wave_width, device)."""
+        from ..data.pipeline import load_artifacts, standardize_fit_all
+
+        model_cfg = {
+            ("digit", "unconstrained"): MLPConfig.digit_unconstrained,
+            ("digit", "constrained"): MLPConfig.digit_constrained,
+            ("speaker", "unconstrained"): MLPConfig.speaker_unconstrained,
+            ("speaker", "constrained"): MLPConfig.speaker_constrained,
+        }[(task, variant)]()
+        fe_cfg = (FrontendConfig.digit() if task == "digit"
+                  else FrontendConfig.speaker())
+        params, state = load_checkpoint(ckpt_path, model_cfg)
+        scaler = None
+        if standardize:
+            if artifacts_dir is None:
+                raise ValueError(
+                    "standardize=True needs artifacts_dir to re-derive the "
+                    "train-time scaler moments (or pass scaler= explicitly "
+                    "to InferenceEngine)")
+            d = load_artifacts(artifacts_dir)
+            _, _, _, mean, scale = standardize_fit_all(
+                d.train_data, d.dev_data, d.test_data)
+            scaler = (mean, scale)
+        return cls(model_cfg, fe_cfg, params, state, scaler=scaler, **kw)
 
     # -- the request path ----------------------------------------------------
 

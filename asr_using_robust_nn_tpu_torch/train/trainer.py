@@ -318,11 +318,16 @@ class Trainer:
         split there (TrainConfig.device_resident).
 
         Resume: pass params/state (+ opt_state to continue Adam) and the
-        stored val_loss as `initial_best_val`."""
-        if checkpoint_dir is not None or metrics_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir/metrics_dir: checkpoint and metrics I/O is "
-                "not ported yet")
+        stored val_loss as `initial_best_val`; without the latter the
+        resumed run starts from best = inf and its first epoch would
+        overwrite a better saved best.
+
+        `checkpoint_dir`: every val improvement is saved there
+        (`train/checkpoints.py::CheckpointManager.save_best`: params, state,
+        Adam state, epoch, val_loss). `metrics_dir`: per-epoch scalars loss,
+        acc, val_loss, val_acc (`utils/profiling.py::MetricWriter`). The
+        result names the epoch backend that ran ("streaming", "plain" or
+        "fused") and what the checkpoint writes cost."""
         cfg = self.cfg
         dev = self.device
         if len(val_x) == 0:
@@ -349,11 +354,22 @@ class Trainer:
                 (_tree_map(host, params), _tree_map(host, state)))
         wait = 0
         history = {"loss": [], "acc": [], "val_loss": [], "val_acc": []}
+        ckpt = writer = None
+        if checkpoint_dir is not None:
+            from .checkpoints import CheckpointManager
+
+            ckpt = CheckpointManager(checkpoint_dir)
+        if metrics_dir is not None:
+            from ..utils.profiling import MetricWriter
+
+            writer = MetricWriter(metrics_dir)
 
         dr = None
+        backend = "streaming"
         if cfg.device_resident:
             dr = self._device_resident_setup(train_x, train_y, val_x, val_y,
                                              params, state, fresh_opt)
+            backend = dr[-1]
 
         t0 = time.perf_counter()
         steps = 0
@@ -364,7 +380,7 @@ class Trainer:
         for epoch in range(0, cfg.epochs, ep_stride):
             if dr is not None:
                 (epoch_fns, make_epoch_fn, eval_fn, d_train, l_train, n_true,
-                 d_val, l_val, n_val) = dr
+                 d_val, l_val, n_val, _) = dr
                 this_stride = min(ep_stride, cfg.epochs - epoch)
                 if this_stride not in epoch_fns:
                     epoch_fns[this_stride] = make_epoch_fn(this_stride)
@@ -408,6 +424,10 @@ class Trainer:
             history["val_acc"].append(val_acc)
             for cb in self.epoch_callbacks:
                 cb(epoch, params, state, history)
+            if writer is not None:
+                writer.scalars(
+                    {"loss": history["loss"][-1], "acc": history["acc"][-1],
+                     "val_loss": val_loss, "val_acc": val_acc}, epoch)
             if cfg.log_every and (epoch % cfg.log_every) < ep_stride:
                 print(f"epoch {epoch}: loss={history['loss'][-1]:.4f} "
                       f"acc={history['acc'][-1]:.4f} val_loss={val_loss:.4f} "
@@ -416,12 +436,16 @@ class Trainer:
                 best_val = val_loss
                 best = (_tree_map(host, params), _tree_map(host, state))
                 wait = 0
+                if ckpt is not None:
+                    ckpt.save_best(*best, opt_state, epoch, val_loss)
             else:
                 # patience counts epochs, whatever each dispatch fuses
                 wait += ep_stride if dr is not None else 1
                 if wait >= cfg.patience:
                     break
         elapsed = time.perf_counter() - t0
+        if writer is not None:
+            writer.close()
         if best is None:
             best = (_tree_map(host, params), _tree_map(host, state))
         return {
@@ -437,12 +461,16 @@ class Trainer:
             "steps": steps,
             "seconds": elapsed,
             "examples_per_sec": examples_seen / max(elapsed, 1e-9),
+            "epoch_backend": backend,
+            "checkpoint_writes": 0 if ckpt is None else ckpt.writes,
+            "checkpoint_seconds": 0.0 if ckpt is None else ckpt.write_seconds,
         }
 
     def _device_resident_setup(self, train_x, train_y, val_x, val_y, params,
                                state, fresh_opt):
         """The split on the device and the epoch/eval programs of a
-        device-resident fit (plain autograd epoch or the fused epoch)."""
+        device-resident fit (plain autograd epoch or the fused epoch); the
+        last entry names the one chosen."""
         from ..parallel.mesh import pad_to_multiple
         from .epoch_scan import build_epoch_fn, build_eval_fn
 
@@ -464,7 +492,8 @@ class Trainer:
         d_val = self._tensor(d_v, torch.float32)
         l_val = self._tensor(l_v, torch.int64)
 
-        if self._resolve_epoch_backend(fresh_opt):
+        fused = self._resolve_epoch_backend(fresh_opt)
+        if fused:
             from ..ops.cuda_train import (
                 FusedStepSpec, build_fused_epoch_fn, epoch_parity_vs_plain,
                 pack_state, pad_features, unpack_opt_state, unpack_params)
@@ -516,4 +545,4 @@ class Trainer:
             cfg.epochs_per_dispatch)}
         eval_fn = build_eval_fn(self.model_cfg, batch_size=vb)
         return (epoch_fns, make_epoch_fn, eval_fn, d_train, l_train, n_true,
-                d_val, l_val, len(vx))
+                d_val, l_val, len(vx), "fused" if fused else "plain")

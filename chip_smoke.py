@@ -90,6 +90,24 @@ which raises on failure (the exit code is then non-zero):
            K4/K5 launch counts equal to the batch counts; then
            load_artifacts -> standardize_fit_all -> a short Trainer.fit on
            the digit artifacts;
+  cli      the trained-model path through `cli.main` on those digit
+           artifacts, on the default device: `train --device-resident` of
+           digit_constrained (simple_norm rho 0.1, batch 512, 8 epochs) with a
+           checkpoint store and metrics (K3 replays = epochs + the parity
+           check's one; meta.json names the least val_loss event, and the
+           stored best re-scores it within 1e-6), an unconstrained streaming
+           run, `evaluate` (equal to Trainer.evaluate in process; the
+           confusion matrix sums to the test size), `infer --warmup` from the
+           checkpoint (labels equal an engine built in process; K1 launches =
+           frontend calls), `--resume` (K2 once a step, no K3, the stored
+           val_loss does not rise), the norm, custom and fista projections of
+           a full-width tree on the card against the CPU (2e-4) and one
+           streaming epoch of each, `certify` l2 and linf (curves do not rise,
+           eps 0 is the clean accuracy, the sound bounds within 1e-4 of a
+           float64 recomputation) and `--export-h5` (refused before training
+           without h5py, else read back bit for bit); each command's wall
+           time, the fit's ms an epoch, the checkpoint writes' share of it,
+           and the engine's cold and warm latency from the checkpoint;
   timing   K1 against its plain twin at the 1024-row buckets (CUDA events),
            the engine's warm p50/p95 per bucket and ingress dtype, and
            beside each the request's host-to-device copy and K1 timed alone;
@@ -1858,10 +1876,15 @@ def oracle_features(cfg, y):
 
 
 def prepare_phase(dev, digit_per_class=256, speakers=20, recs_per_speaker=20,
-                  batch=256, fit_epochs=60, fit_batch=128, samples=24):
+                  batch=256, fit_epochs=60, fit_batch=128, samples=24,
+                  root=None):
     """The data-preparation path at the presets' full width: corpus ->
     prepare-data (digit on K4, speaker on K5 and once on K1) -> artifacts ->
-    load_artifacts -> standardize_fit_all -> Trainer.fit."""
+    load_artifacts -> standardize_fit_all -> Trainer.fit. The corpora and
+    artifacts go under `root` (kept for the cli phase; None: a temporary
+    directory removed on return)."""
+    import contextlib
+
     import torch
     from asr_using_robust_nn_tpu_torch.constraints import (
         make_simple_norm_constraint)
@@ -1885,7 +1908,8 @@ def prepare_phase(dev, digit_per_class=256, speakers=20, recs_per_speaker=20,
     on_card = dev.type == "cuda"
     rng = np.random.default_rng(SEED + 62)
     out = {}
-    with tempfile.TemporaryDirectory() as root:
+    with (tempfile.TemporaryDirectory() if root is None
+          else contextlib.nullcontext(root)) as root:
         ddir, sdir = write_corpora(dev, root, digit_per_class, speakers,
                                    recs_per_speaker)
         print(f"prepare decoder: "
@@ -2065,6 +2089,7 @@ def prepare_phase(dev, digit_per_class=256, speakers=20, recs_per_speaker=20,
         check(h["val_acc"][-1] > 0.2, f"prepare -> fit: val accuracy "
               f"{h['val_acc'][-1]} did not leave chance")
         out.update(
+            digit_artifacts=d_out, digit_audio=os.path.join(ddir, "one"),
             k4_launches=k4, k5_launches=k5, digit_files=len(art.train_label)
             + len(art.dev_label) + len(art.test_label), digit_s=d_sec,
             speaker_files=len(files), speaker_windows=total, speaker_s=s_sec,
@@ -2078,6 +2103,324 @@ def prepare_phase(dev, digit_per_class=256, speakers=20, recs_per_speaker=20,
         for i in range(0, len(all_files), batch):
             native.decode_resample_batch(all_files[i: i + batch], d_cfg.sr)
         out["digit_decode_s"] = time.perf_counter() - t0
+    return out
+
+
+# -- cli phase -------------------------------------------------------------------
+
+def run_cli(dev, name, argv, card, walls, want_rc=0):
+    """One subcommand through the CLI's `main`, on the default device when
+    `dev` is the card. -> (stdout, stderr); its wall time goes to `walls`."""
+    import contextlib
+    import io
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.cli.main import main as cli_main
+
+    if dev.type != "cuda":
+        argv = argv + ["--device", str(dev)]
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    print(f"cli {name}: `{' '.join(argv[:5])} ...` exit {rc} in "
+          f"{walls[name]:.2f} s ({card})", flush=True)
+    check(rc == want_rc, f"cli {name}: exit code {rc}, want {want_rc}; "
+          f"stderr: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def sound_bound_f64(tree, cfg) -> float:
+    """get_lipschitz_sound recomputed in float64 numpy on the host."""
+    bound = 1.0
+    for p, s in zip(tree[0]["layers"], tree[1]["layers"]):
+        bound *= np.linalg.norm(np.asarray(p["w"], np.float64), 2)
+        if cfg.batch_norm and "gamma" in p:
+            bound *= np.max(np.abs(np.asarray(p["gamma"], np.float64))
+                            / np.sqrt(np.asarray(s["var"], np.float64)
+                                      + cfg.bn_eps))
+    return float(bound)
+
+
+def cli_phase(dev, prep, root, epochs=8, card=None):
+    """The trained-model path through the CLI on the digit artifacts that
+    the prepare phase wrote: train a constrained model on K3 into a
+    checkpoint store, an unconstrained one streaming; evaluate; infer from
+    the checkpoint (K1); resume (K2, not K3); the norm, custom and fista
+    projections on the card against the CPU, and a streaming epoch of each;
+    certify (l2, linf); export to .h5 where h5py is installed."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.cli.main import load_model, model_cfg_for
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_custom_constraint, make_fista_constraint, make_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        load_artifacts, standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
+    from asr_using_robust_nn_tpu_torch.models.mlp import dense_kernels, init_mlp
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_train import (
+        build_fused_epoch_call)
+    from asr_using_robust_nn_tpu_torch.serve.engine import InferenceEngine
+    from asr_using_robust_nn_tpu_torch.train import trainer as trainer_mod
+    from asr_using_robust_nn_tpu_torch.train.checkpoints import (
+        CheckpointManager)
+
+    on_card = dev.type == "cuda"
+    card = card or card_line()
+    art, audio = prep["digit_artifacts"], prep["digit_audio"]
+    ck_c, ck_u = os.path.join(root, "ck_c"), os.path.join(root, "ck_u")
+    metrics = os.path.join(root, "metrics")
+    walls, out = {}, {}
+    d = load_artifacts(art)
+    tr_x, va_x, te_x = (a.astype(np.float32) for a in standardize_fit_all(
+        d.train_data, d.dev_data, d.test_data)[:3])
+    va_y, te_y = d.dev_label.astype(np.int64), d.test_label.astype(np.int64)
+    steps = -(-len(tr_x) // 512)
+    cfg_c = model_cfg_for("digit", "constrained")
+    cfg_u = model_cfg_for("digit", "unconstrained")
+    c_args = ["--task", "digit", "--variant", "constrained", "--constraint",
+              "simple", "--rho", "0.1", "--batch-size", "512", "--data", art,
+              "--log-every", "0"]
+
+    # ---- 1. train constrained on K3 into a checkpoint store ---------------
+    trainer_mod._FUSED_EPOCH_GATE.clear()  # a CLI run is a fresh process
+    build_fused_epoch_call.launches = 0  # the cli path starts here
+    text, _ = run_cli(dev, "train_k3", ["train", *c_args, "--device-resident",
+                                        "--epochs", str(epochs), "--ckpt",
+                                        ck_c, "--metrics-dir", metrics],
+                      card, walls)
+    k3 = build_fused_epoch_call.launches  # ... and its K3 part ends here
+    line = last_json(text)
+    check("epoch backend: fused" in text if on_card
+          else "epoch backend: plain" in text, "train_k3: epoch backend")
+    if on_card:
+        check(k3 == epochs + 1, f"K3 replayed {k3} times for {epochs} epochs "
+              f"+ the parity check's one")
+    with open(os.path.join(metrics, "metrics.jsonl")) as f:
+        events = [json.loads(row) for row in f]
+    val = {e["step"]: e["value"] for e in events if e["tag"] == "val_loss"}
+    check(sorted(val) == list(range(epochs)), f"val_loss events {sorted(val)}")
+    with open(os.path.join(ck_c, "meta.json")) as f:
+        meta = json.load(f)
+    best_ep = min(val, key=val.get)
+    check(sorted(meta) == ["epoch", "val_loss"]
+          and meta["epoch"] == best_ep and meta["val_loss"] == val[best_ep],
+          f"meta.json {meta} is not the best val_loss event "
+          f"({best_ep}: {val[best_ep]})")
+    tree, _ = CheckpointManager(ck_c).load_best()
+    p_c, s_c = params_from_numpy(tree["params"], tree["state"], dev)
+    ev = trainer_mod.Trainer(cfg_c, trainer_mod.TrainConfig(batch_size=512),
+                             device=dev)
+    re_val, _ = ev.evaluate(p_c, s_c, va_x, va_y)
+    check(abs(re_val - meta["val_loss"]) <= 1e-6, f"the stored best scores "
+          f"val_loss {re_val}, meta.json says {meta['val_loss']}")
+    writes, ck_s, fit_s = (line["checkpoint_writes"],
+                           line["checkpoint_seconds"], line["fit_seconds"])
+    check(writes == len({v for v in np.minimum.accumulate(
+        [val[e] for e in range(epochs)])}), "save_best once per improvement")
+    store_mb = os.path.getsize(os.path.join(ck_c, "best.npz")) / 1e6
+    print(f"cli train_k3: {epochs} epochs of {steps} steps x 512 on "
+          f"{'K3' if on_card else 'the twin'} (K3 replays {k3}), fit "
+          f"{fit_s:.3f} s = {1e3 * fit_s / epochs:.2f} ms an epoch (eval and "
+          f"checkpoint included); save_best {writes} writes of "
+          f"{store_mb:.2f} MB in {1e3 * ck_s:.1f} ms = "
+          f"{100 * ck_s / fit_s:.1f} % of the fit; best epoch {best_ep} "
+          f"val_loss {meta['val_loss']:.6f}, re-evaluated from the store "
+          f"{re_val:.6f}; test acc {line['test_accuracy']:.4f} ({card})",
+          flush=True)
+    out.update(k3_launches=k3, fit_ms_per_epoch=1e3 * fit_s / epochs,
+               save_writes=writes, save_ms=1e3 * ck_s, fit_s=fit_s,
+               store_mb=store_mb, steps_per_epoch=steps)
+
+    # ---- 2. train unconstrained, streaming ----------------------------------
+    text, _ = run_cli(dev, "train_u", [
+        "train", "--task", "digit", "--variant", "unconstrained", "--data",
+        art, "--epochs", "3", "--ckpt", ck_u, "--log-every", "0"], card, walls)
+    check("epoch backend: streaming" in text, "train_u: epoch backend")
+
+    # ---- 3. evaluate ----------------------------------------------------------
+    text, _ = run_cli(dev, "evaluate", [
+        "evaluate", "--task", "digit", "--variant", "constrained", "--data",
+        art, "--ckpt", ck_c], card, walls)
+    ev_line = last_json(text)
+    t_loss, t_acc = trainer_mod.Trainer(
+        cfg_c, trainer_mod.TrainConfig(batch_size=256),
+        device=dev).evaluate(p_c, s_c, te_x, te_y)
+    conf = np.asarray(ev_line["confusion_matrix"])
+    check(abs(ev_line["test_loss"] - t_loss) <= 1e-6
+          and abs(ev_line["test_accuracy"] - t_acc) <= 1e-6,
+          f"evaluate {ev_line['test_loss']}, {ev_line['test_accuracy']} vs "
+          f"in process {t_loss}, {t_acc}")
+    check(conf.sum() == len(te_y) and np.trace(conf) == round(
+        t_acc * len(te_y)), f"confusion matrix sums to {conf.sum()}")
+    print(f"cli evaluate: test loss {t_loss:.6f} acc {t_acc:.4f}, confusion "
+          f"trace {np.trace(conf)} of {conf.sum()} ({card})", flush=True)
+
+    # ---- 4. infer from the checkpoint (K1) -------------------------------------
+    mel_power_cuda.launches = 0  # the infer path starts here
+    text, _ = run_cli(dev, "infer", [
+        "infer", "--task", "digit", "--variant", "constrained", "--ckpt", ck_c,
+        "--data", art, "--audio", audio, "--warmup"], card, walls)
+    k1 = mel_power_cuda.launches  # ... and ends here
+    inf = last_json(text)
+    paths = [r["path"] for r in inf["results"]]
+    eng = InferenceEngine.from_checkpoint("digit", "constrained", ck_c,
+                                          artifacts_dir=art, device=dev)
+    t0 = time.perf_counter()
+    cold = eng.classify_files(paths)
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    for _ in range(5):
+        eng.classify_files(paths)
+    warm = eng.latency_stats()
+    calls = 2 * len(eng.buckets) + -(-len(paths) // eng.buckets[-1])
+    check([r["label"] for r in inf["results"]]
+          == [r["label"] for r in cold], "infer labels differ from an "
+          "engine built in process from the same checkpoint and scaler")
+    if on_card:
+        check(k1 == calls, f"K1 launched {k1} times for {calls} frontend "
+              f"calls")
+    print(f"cli infer: {len(paths)} files, labels equal the in-process "
+          f"engine's; K1 launches {k1} for {calls} frontend calls; CLI warm "
+          f"p50 {inf['latency']['p50_ms']:.2f} ms; engine from the checkpoint:"
+          f" cold classify_files {cold_ms:.1f} ms (classify "
+          f"{1e3 * cold[0]['latency_s']:.2f} ms), warm classify p50 "
+          f"{warm['p50_ms']:.2f} ms p95 {warm['p95_ms']:.2f} ms over "
+          f"{warm['n']} calls of {len(paths)} rows ({card})", flush=True)
+    out.update(k1_launches=k1, frontend_calls=calls, cold_ms=cold_ms,
+               cold_classify_ms=1e3 * cold[0]["latency_s"],
+               warm_p50_ms=warm["p50_ms"], warm_p95_ms=warm["p95_ms"])
+
+    # ---- 5. resume: streaming, K2 once per step, no K3 --------------------------
+    build_fused_epoch_call.launches = 0
+    product_spectral_norm_cuda.launches = 0  # the resumed fit starts here
+    text, _ = run_cli(dev, "resume", ["train", *c_args, "--epochs", "2",
+                                      "--ckpt", ck_c, "--resume"], card, walls)
+    k2, k3_resume = (product_spectral_norm_cuda.launches,
+                     build_fused_epoch_call.launches)  # ... and ends here
+    with open(os.path.join(ck_c, "meta.json")) as f:
+        meta2 = json.load(f)
+    check("resumed from" in text and "epoch backend: streaming" in text,
+          "resume: not resumed, or not streaming")
+    check(meta2["val_loss"] <= meta["val_loss"], f"resume raised the stored "
+          f"val_loss {meta['val_loss']} -> {meta2['val_loss']}")
+    if on_card:
+        check(k3_resume == 0 and k2 == 2 * steps, f"resume: K3 {k3_resume} "
+              f"launches, K2 {k2} for {2 * steps} steps")
+    print(f"cli resume: 2 epochs, K2 launches {k2}, K3 {k3_resume}; stored "
+          f"val_loss {meta['val_loss']:.6f} -> {meta2['val_loss']:.6f} "
+          f"({card})", flush=True)
+    out.update(k2_launches=k2)
+
+    # ---- 6. norm, custom, fista: the card against the CPU, then an epoch -------
+    p0, _ = init_mlp(cfg_c, torch.Generator(device=dev).manual_seed(SEED + 90),
+                     device=dev)
+    cpu = torch.device("cpu")
+    proj = {}
+    for name, con in (("norm", make_norm_constraint(0.1)),
+                      ("custom", make_custom_constraint(0.1)),
+                      ("fista", make_fista_constraint(0.1, nit=2))):
+        cs = con.init(p0)
+        t0 = time.perf_counter()
+        got, _ = con.apply(p0, cs)
+        if on_card:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want, _ = con.apply(
+            {"layers": [{k: v.to(cpu) for k, v in layer.items()}
+                        for layer in p0["layers"]]},
+            {"u": [u.to(cpu) for u in cs["u"]]} if cs else cs)
+        err = max(float(torch.max(torch.abs(a.cpu() - b)
+                                  - 2e-4 * torch.abs(b)))
+                  for a, b in zip(dense_kernels(got), dense_kernels(want)))
+        abs_err = max(float(torch.max(torch.abs(a.cpu() - b)))
+                      for a, b in zip(dense_kernels(got), dense_kernels(want)))
+        check(err <= 2e-4, f"{name}: card vs CPU projection differ by "
+              f"{abs_err} (bar 2e-4 + 2e-4 rel)")
+        text, _ = run_cli(dev, f"train_{name}", [
+            "train", "--task", "digit", "--variant", "constrained",
+            "--constraint", name, "--rho", "0.1", "--batch-size", "512",
+            "--data", art, "--epochs", "1", "--ckpt",
+            os.path.join(root, f"ck_{name}"), "--log-every", "0"],
+            card, walls)
+        check("epoch backend: streaming" in text, f"train_{name}: backend")
+        proj[name] = {"ms": ms, "max_abs_err": abs_err,
+                      "epoch_s": walls[f"train_{name}"]}
+        print(f"cli {name}: one full-width projection {ms:.2f} ms on "
+              f"{dev.type}, card vs CPU max_abs {abs_err:.3e} (bar 2e-4 + "
+              f"2e-4 rel); one streaming epoch through the CLI "
+              f"{walls[f'train_{name}']:.2f} s ({card})", flush=True)
+    out["projections"] = proj
+
+    # ---- 7. certify ---------------------------------------------------------------
+    trees = {"c": load_model(ck_c, cfg_c), "u": load_model(ck_u, cfg_u)}
+    want_lip = {"c": sound_bound_f64(trees["c"], cfg_c),
+                "u": sound_bound_f64(trees["u"], cfg_u)}
+    for norm in ("l2", "linf"):
+        text, _ = run_cli(dev, f"certify_{norm}", [
+            "certify", "--task", "digit", "--data", art, "--constrained",
+            ck_c, "--unconstrained", ck_u, "--norm", norm], card, walls)
+        cert = last_json(text)
+        for m, key in (("c", "constrained"), ("u", "unconstrained")):
+            curve = cert[f"certified_{key}"]
+            check(all(a >= b for a, b in zip(curve, curve[1:])),
+                  f"certify {norm}: the {key} curve increases: {curve}")
+            lip = cert[f"lipschitz_sound_{key}"]
+            check(abs(lip - want_lip[m]) <= 1e-4 * want_lip[m],
+                  f"certify: lipschitz_sound_{key} {lip} vs float64 "
+                  f"{want_lip[m]}")
+        check(cert["strengths"][0] == 0.0 and abs(
+            cert["certified_constrained"][0] - t_acc) <= 1e-6,
+            f"certify {norm}: eps=0 point {cert['certified_constrained'][0]} "
+            f"is not the clean accuracy {t_acc}")
+        print(f"cli certify {norm}: constrained "
+              f"{[round(v, 4) for v in cert['certified_constrained']]} "
+              f"(L {cert['lipschitz_sound_constrained']:.4g}), unconstrained "
+              f"{[round(v, 4) for v in cert['certified_unconstrained']]} "
+              f"(L {cert['lipschitz_sound_unconstrained']:.4g}); sound bounds "
+              f"within 1e-4 of float64 ({card})", flush=True)
+        out[f"certify_{norm}"] = {k: cert[k] for k in (
+            "strengths", "certified_constrained", "certified_unconstrained",
+            "lipschitz_sound_constrained", "lipschitz_sound_unconstrained")}
+
+    # ---- 8. export --------------------------------------------------------------
+    h5_path, ck_h5 = os.path.join(root, "c.h5"), os.path.join(root, "ck_h5")
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    exp_argv = ["train", *c_args, "--epochs", "1", "--ckpt", ck_h5,
+                "--export-h5", h5_path]
+    if have_h5py:
+        run_cli(dev, "export", exp_argv, card, walls)
+        got = load_model(h5_path, cfg_c)
+        want = CheckpointManager(ck_h5).load_best()[0]
+        check(all(np.array_equal(a[k], b[k])
+                  for ta, tb in ((got[0], want["params"]),
+                                 (got[1], want["state"]))
+                  for a, b in zip(ta["layers"], tb["layers"]) for k in a),
+              "export: the .h5 does not read back bit for bit")
+        print(f"cli export: h5py present, {h5_path} reads back bit for bit "
+              f"({card})", flush=True)
+    else:
+        _, err = run_cli(dev, "export", exp_argv, card, walls, want_rc=2)
+        check("needs h5py" in err and not os.path.exists(ck_h5),
+              f"export without h5py: {err.strip()}")
+        print(f"cli export: h5py absent, `train --export-h5` refused before "
+              f"training: {err.strip()} ({card})", flush=True)
+    out["h5py"] = have_h5py
+    out["walls_s"] = {k: round(v, 3) for k, v in walls.items()}
+    print(f"cli wall seconds by command: {out['walls_s']} ({card})",
+          flush=True)
     return out
 
 
@@ -2751,9 +3094,9 @@ def main() -> int:
           flush=True)
     walls = {}
 
-    def timed(name, fn, *a):
+    def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
-        res = fn(*a)
+        res = fn(*a, **kw)
         torch.cuda.synchronize()
         walls[name] = round(time.perf_counter() - t0, 1)
         return res
@@ -2770,7 +3113,9 @@ def main() -> int:
     k6 = timed("k6", k6_phase, dev, k3_args)
     train = timed("train", train_phase, dev, split)
     mrun = timed("multi_run", multi_run_phase, dev, split)
-    prep = timed("prepare", prepare_phase, dev)
+    with tempfile.TemporaryDirectory() as root:
+        prep = timed("prepare", prepare_phase, dev, root=root)
+        cli = timed("cli", cli_phase, dev, prep, root, card=card)
     timing = timed("timing", timing_phase, dev, serve.pop("engine"),
                    serve.pop("speaker_engine"), serve.pop("recording"))
     ttime = timed("train_timing", train_timing_phase, dev, k3_args)
@@ -2795,6 +3140,7 @@ def main() -> int:
         "source": cuda_mfcc.KERNEL_SOURCES["fft"],
         "replaces": REPLACES, "launches": serve["launches"],
         "train_launches": split["k1_launches"],
+        "cli_launches": cli["k1_launches"],
         "max_abs_err": kern["max_abs_err"],
         "max_rel_err": kern["max_rel_err"],
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain "
@@ -2838,6 +3184,7 @@ def main() -> int:
         "source": cuda_spectral.KERNEL_SOURCE,
         "replaces": cuda_spectral.REPLACES,
         "launches": train["k2_launches"],
+        "cli_launches": cli["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "sigma_rel_err": k2["sigma_rel_err"],
         "tolerance": "vs twin: sigma rtol 5e-3, u atol 5e-3 (bf16); 1e-4 "
@@ -2863,6 +3210,7 @@ def main() -> int:
         "name": "fused_epoch", "route": "cuda",
         "source": cuda_train.KERNEL_SOURCE, "replaces": cuda_train.REPLACES,
         "launches": train["k3_launches"],
+        "cli_launches": cli["k3_launches"],
         "max_abs_err": k3["max_abs_err"],
         "tolerance": "vs twin after one epoch: params < lr*max(8, 2*steps), "
                      "layer-0 BN mean < 6e-3, epoch loss/acc < 3e-2, Adam "
@@ -2966,6 +3314,7 @@ def main() -> int:
         "max_probs_err": serve["max_probs_err"],
         "train": train,
         "prepare": {**prep, **ftime["prepare"]},
+        "cli": cli,
         "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"},
         "k6_vs_twin": {k: v for k, v in k6.items() if k != "max_abs_err"},
         "multi_run": {**mrun, "fused_ms_per_run_epoch":

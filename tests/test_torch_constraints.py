@@ -260,3 +260,136 @@ def test_partitioned_twin_at_real_widths(chain):
                 matvec_dtype=torch.bfloat16 if bf16 else None)
             np.testing.assert_allclose(float(sig), float(sig_t), rtol=bar)
             np.testing.assert_allclose(u.numpy(), u_t.numpy(), atol=bar)
+
+
+# -- the other three algorithms: norm, custom, fista ----------------------------
+
+from asr_using_robust_nn_tpu.constraints import (  # noqa: E402
+    make_custom_constraint as jcustom, make_fista_constraint as jfista,
+    make_norm_constraint as jnorm)
+from asr_using_robust_nn_tpu.constraints.engine import (  # noqa: E402
+    _fista_project as j_fista_project)
+from asr_using_robust_nn_tpu.ops.spectral import (  # noqa: E402
+    spectral_norm_with_state as jsn)
+from asr_using_robust_nn_tpu_torch.constraints import (  # noqa: E402
+    engine as port_engine, make_custom_constraint, make_fista_constraint,
+    make_norm_constraint)
+from asr_using_robust_nn_tpu_torch.ops.spectral import (  # noqa: E402
+    spectral_norm_with_state)
+
+
+def _port_params(jp, js):
+    return params_from_numpy(jp, js, device="cpu")[0]
+
+
+def _assert_kernels_close(p_port, p_jax, tol=2e-4):
+    got, _ = params_to_numpy(p_port, {"layers": []})
+    for a, b in zip(got["layers"], p_jax["layers"]):
+        for k in a:
+            np.testing.assert_allclose(a[k], np.asarray(b[k]), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.parametrize("n_iter", [1, 8])
+def test_spectral_norm_with_state_matches_jax(rng, n_iter):
+    w = rng.standard_normal((24, 12)).astype(np.float32)
+    u0 = rng.standard_normal(24).astype(np.float32)
+    sig, u = spectral_norm_with_state(torch.from_numpy(w),
+                                      torch.from_numpy(u0), n_iter)
+    jsig, ju = jsn(jnp.asarray(w), jnp.asarray(u0), n_iter)
+    np.testing.assert_allclose(float(sig), float(jsig), rtol=1e-5)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=1e-5)
+
+
+@pytest.mark.parametrize("n_iter", [2, 8])
+def test_norm_apply_matches_jax(n_iter):
+    """Per-layer norm projection with the JAX start vectors carried across
+    (threefry draws cannot match): kernels within 2e-4, u alike."""
+    jp, js = _small_params(seed=3 + n_iter)
+    jp["layers"][1]["w"][0, :3] = -0.5  # negatives the clamp removes
+    jc = jnorm(0.5, n_iter=n_iter)
+    jcs = jc.init(jp)
+    jp2, jcs2 = jc.apply(jax.tree_util.tree_map(jnp.asarray, jp), jcs)
+    c = make_norm_constraint(0.5, n_iter=n_iter)
+    port_cs = c.init(_port_params(jp, js))
+    assert [tuple(u.shape) for u in port_cs["u"]] == [
+        tuple(np.shape(u)) for u in jcs["u"]]
+    p2, cs2 = c.apply(_port_params(jp, js),
+                      {"u": [torch.tensor(np.asarray(u))
+                             for u in jcs["u"]]})
+    _assert_kernels_close(p2, jp2)
+    for a, b in zip(cs2["u"], jcs2["u"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    assert all(float(torch.min(w)) >= 0 for w in
+               (layer["w"] for layer in p2["layers"]))
+
+
+def test_custom_apply_matches_jax():
+    """Frobenius scaling, the reference's quirk (PARITY #4)."""
+    jp, js = _small_params(seed=2)
+    jp["layers"][0]["w"][:2] *= -1.0
+    jc = jcustom(0.5)
+    jp2, jcs2 = jc.apply(jax.tree_util.tree_map(jnp.asarray, jp),
+                         jc.init(jp))
+    c = make_custom_constraint(0.5)
+    p2, cs2 = c.apply(_port_params(jp, js), c.init(None))
+    _assert_kernels_close(p2, jp2)
+    assert cs2 == () == jcs2
+    for layer in p2["layers"]:
+        np.testing.assert_allclose(float(torch.linalg.norm(layer["w"])), 0.5,
+                                   rtol=1e-5)
+
+
+def _count_svds(monkeypatch):
+    calls = []
+    svd = torch.linalg.svd
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return svd(*a, **kw)
+
+    monkeypatch.setattr(port_engine.torch.linalg, "svd", counted)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["nit2", "nit3_scaled", "early_exit"])
+def test_fista_apply_matches_jax(case, monkeypatch):
+    """FISTA per layer on the live weights, the JAX while_loop's exit rule:
+    kernels within 2e-4. `early_exit`: weights that already meet rho leave
+    every layer's loop after its first iteration of a possible 40, in both
+    packages (the port's SVD count shows it)."""
+    jp, js = _small_params(seed=5)
+    nit = {"nit2": 2, "nit3_scaled": 3, "early_exit": 40}[case]
+    rho = 0.5
+    if case == "nit3_scaled":
+        for layer in jp["layers"]:
+            layer["w"] = layer["w"] * 3.0
+    if case == "early_exit":
+        for layer in jp["layers"]:
+            layer["w"] = layer["w"] * 0.05  # product norm far below rho
+    jc = jfista(rho, nit=nit)
+    jp2, _ = jc.apply(jax.tree_util.tree_map(jnp.asarray, jp), jc.init(jp))
+    calls = _count_svds(monkeypatch)
+    c = make_fista_constraint(rho, nit=nit)
+    p2, cs2 = c.apply(_port_params(jp, js), c.init(None))
+    _assert_kernels_close(p2, jp2)
+    assert cs2 == ()
+    n_layers = len(jp["layers"])
+    if case == "early_exit":
+        assert len(calls) == n_layers  # one iteration a layer
+        _assert_kernels_close(p2, jp)  # nonneg weights inside the ball
+    else:
+        assert len(calls) == nit * n_layers
+
+
+def test_fista_project_single_layer_matches_jax(rng):
+    """`_fista_project` alone on a wide matrix with A and B chains."""
+    w = np.abs(rng.standard_normal((16, 24))).astype(np.float32) * 0.5
+    a = np.abs(rng.standard_normal((4, 16))).astype(np.float32)
+    b = np.abs(rng.standard_normal((24, 20))).astype(np.float32)
+    got = port_engine._fista_project(torch.from_numpy(w), torch.from_numpy(a),
+                                     torch.from_numpy(b), 1.0, 3, 2.1)
+    want = j_fista_project(jnp.asarray(w), jnp.asarray(a), jnp.asarray(b),
+                           1.0, 3, 2.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-4)

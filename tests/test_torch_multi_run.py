@@ -528,3 +528,67 @@ def test_stacked_multi_run_state_round_trips():
     o2 = adam_state_from_numpy(count, mu, nu, device="cpu")
     _assert_trees_equal((p2, s2, o2), (params, state, opt_state))
     assert p2["layers"][0]["w"].shape == (3, 24, 16)
+
+
+@pytest.mark.parametrize("algo", ["norm", "custom"])
+def test_fit_multi_run_other_factories_vs_jax(algo, monkeypatch):
+    """`norm` and `custom` as `constraint_factory` in a rho sweep on the
+    plain backend, through both packages' `fit_multi_run`: the same stacked
+    initial parameters and norm start vectors (numpy, from the JAX init),
+    shuffle off, dropout 0, 3 epochs of 5 steps. Parameters and the
+    validation rows within 5e-4 (the frozen-run test's bar)."""
+    from asr_using_robust_nn_tpu.constraints.engine import (
+        make_custom_constraint as jcustom, make_norm_constraint as jnorm)
+    from asr_using_robust_nn_tpu.train.trainer import (
+        TrainConfig as JTrainConfig)
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_custom_constraint, make_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.train import multi_run as mr
+
+    kw = dict(KW, dropout=(0.0, 0.0))
+    jcfg, cfg = jmlp.MLPConfig(**kw), MLPConfig(**kw)
+    x, y, xv, yv = _toy_data(300, 80)
+    seeds, rhos = [3, 7], [0.5, 2.0]
+    tkw = dict(batch_size=BS, epochs=3, patience=10, device_resident=True,
+               epochs_per_dispatch=1, shuffle=False)
+    jfac, fac = {"norm": (jnorm, make_norm_constraint),
+                 "custom": (jcustom, make_custom_constraint)}[algo]
+    jinit = jmr.init_multi_run_state(jcfg, jadam(1e-3), seeds,
+                                     jfac(1.0).init)
+    p_np, s_np = jax.tree_util.tree_map(np.asarray, (jinit[0], jinit[1]))
+    u_np = jax.tree_util.tree_map(np.asarray, jinit[3])
+    jres = jmr.fit_multi_run(jcfg, JTrainConfig(**tkw), x, y, xv, yv, seeds,
+                             constraint_factory=jfac, rhos=rhos)
+
+    def init_from_jax(model_cfg, optimizer, run_seeds, constraint_init=None,
+                      mesh=None, device=None):
+        port = init_multi_run_state(model_cfg, optimizer, run_seeds,
+                                    constraint_init, device=device)
+        params, state = params_from_numpy(p_np, s_np, device="cpu")
+        zeros = jax.tree_util.tree_map(np.zeros_like, p_np)
+        opt_state = adam_state_from_numpy(np.zeros(2, np.int32), zeros,
+                                          zeros, device="cpu")
+        cstate = ({"u": [torch.tensor(u) for u in u_np["u"]]}
+                  if algo == "norm" else ())
+        assert _tree_map(lambda t: t.shape, cstate) == _tree_map(
+            lambda t: t.shape, port[3])
+        return (params, state, opt_state, cstate, port[4], port[5])
+
+    monkeypatch.setattr(mr, "init_multi_run_state", init_from_jax)
+    res = fit_multi_run(cfg, TrainConfig(**tkw), x, y, xv, yv, seeds,
+                        constraint_factory=fac, rhos=rhos, device="cpu")
+    tol = dict(atol=5e-4, rtol=0)
+    for key in ("val_loss", "val_acc", "loss"):
+        np.testing.assert_allclose(res["history"][key], jres["history"][key],
+                                   **tol)
+    np.testing.assert_allclose(res["best_val_loss"], jres["best_val_loss"],
+                               **tol)
+    got = params_to_numpy(res["params"], res["state"])
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves((jres["params"],
+                                               jres["state"]))):
+        np.testing.assert_allclose(a, np.asarray(b), **tol)
+    if algo == "norm":
+        for a, b in zip(res["constraint_state"]["u"],
+                        jres["constraint_state"]["u"]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4)

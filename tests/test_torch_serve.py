@@ -263,3 +263,17 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    # an import inside a function escapes the check above: scan the sources
+    # (and chip_smoke.py, which runs where JAX is not installed)
+    import pathlib
+    import re
+
+    root = pathlib.Path(REPO)
+    banned = re.compile(r"^\s*(import (jax|optax|orbax)\b|from (jax|optax|"
+                        r"orbax)\b|.*\basr_using_robust_nn_tpu\.)", re.M)
+    sources = list((root / "asr_using_robust_nn_tpu_torch").rglob("*.py"))
+    sources.append(root / "chip_smoke.py")
+    assert len(sources) > 40
+    hits = [f"{p}: {m.group(0).strip()}" for p in sources
+            for m in banned.finditer(p.read_text())]
+    assert not hits, hits

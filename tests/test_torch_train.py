@@ -231,7 +231,7 @@ def test_fit_matches_jax(resident):
                                                  abs=1e-4)
 
 
-def test_fit_early_stopping_and_io_options():
+def test_fit_early_stopping_and_io_options(tmp_path, monkeypatch):
     rng = np.random.default_rng(6)
     x, y = blobs_task(rng, n=128, d=20, k=4)
     cfg = mlp.MLPConfig(**dict(KW, batch_norm=False))
@@ -240,8 +240,28 @@ def test_fit_early_stopping_and_io_options():
     res = t.fit(x, y, x[:32], y[:32])
     assert res["epochs_run"] == 3  # val_loss never improves after epoch 1
     assert len(res["history"]["val_loss"]) == 3
-    with pytest.raises(NotImplementedError):
-        t.fit(x, y, x, y, checkpoint_dir="ckpt")
+    assert res["epoch_backend"] == "streaming"
+    assert res["checkpoint_writes"] == 0
+    # checkpoint and metrics I/O: one save (the only improvement), one
+    # JSONL row per scalar and epoch (TensorBoard left out here)
+    import json
+    import sys
+
+    from asr_using_robust_nn_tpu_torch.train.checkpoints import (
+        CheckpointManager)
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    res_io = t.fit(x, y, x[:32], y[:32], checkpoint_dir=tmp_path / "ck",
+                   metrics_dir=tmp_path / "m")
+    assert res_io["checkpoint_writes"] == 1
+    tree, meta = CheckpointManager(tmp_path / "ck").load_best()
+    assert meta == {"epoch": 0, "val_loss": res_io["history"]["val_loss"][0]}
+    for a, b in zip(tree["params"]["layers"],
+                    res_io["best_params"]["layers"]):
+        assert all(np.array_equal(a[k], b[k].numpy()) for k in a)
+    rows = [json.loads(r) for r in
+            (tmp_path / "m" / "metrics.jsonl").read_text().splitlines()]
+    assert len(rows) == 4 * 3 and rows[2]["tag"] == "val_loss"
     with pytest.raises(ValueError, match="validation"):
         t.fit(x, y, x[:0], y[:0])
     probs = t.predict(res["best_params"], res["best_state"], x[:10])
