@@ -11,13 +11,16 @@
       --data processed/ --audio some_dir/
   ... certify --data processed/ --constrained runs/digit_c \
       --unconstrained runs/digit_u
+  ... attack --type fgsm --data processed/ --constrained runs/digit_c \
+      --unconstrained runs/digit_u --standardize before
+  ... dolphin --voice seven.wav --out attack.wav
 
-Every subcommand runs on `--device` (default `cuda`, an error where there
-is none; `--device cpu` for the CPU). A checkpoint is a store dir written by
-`train --ckpt` (`best.npz` + `meta.json`, train/checkpoints.py) or a Keras
-layout `.h5` (read and written only where h5py is installed). Not ported
-yet: `train-multi`, `attack`, `dolphin`, `bench` and `profile` (ROADMAP.md
-queue 1).
+Every subcommand but `dolphin` (numpy and scipy on the host) runs on
+`--device` (default `cuda`, an error where there is none; `--device cpu` for
+the CPU). A checkpoint is a store dir written by `train --ckpt` (`best.npz` +
+`meta.json`, train/checkpoints.py) or a Keras layout `.h5` (read and written
+only where h5py is installed). `--plot` needs matplotlib. Not ported yet:
+`train-multi`, `bench` and `profile` (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ from ..frontend.mfcc import Frontend
 
 __all__ = ["main", "model_cfg_for", "load_model"]
 
-# the JAX package's attacks/sweeps.py GRIDS["fgsm_eps_std"]: FGSM strengths
-# on standardized features, the default L-inf certificate grid
-_FGSM_EPS_STD = np.linspace(0.01, 0.3, 10)
+_ATTACKS = ("white_mfcc", "mixture_mfcc", "white_audio", "mixture_audio",
+            "snr_audio", "fgsm", "pgd", "jsma", "cw_l2", "cw_linf")
+_AUDIO_ATTACKS = ("white_audio", "mixture_audio", "snr_audio")
 
 
 def _add_device(p):
@@ -135,6 +138,34 @@ def _add_certify(sub):
     p.add_argument("--out", default=None, help="write curves JSON here")
     p.add_argument("--plot", default=None, help="write comparison plot PNG")
     _add_device(p)
+
+
+def _add_attack(sub):
+    p = sub.add_parser("attack", help="robustness sweep on a model pair")
+    p.add_argument("--type", required=True, choices=_ATTACKS)
+    p.add_argument("--task", choices=["digit", "speaker"], default="digit")
+    p.add_argument("--data", required=True)
+    p.add_argument("--constrained", required=True, help="ckpt dir or .h5")
+    p.add_argument("--unconstrained", required=True, help="ckpt dir or .h5")
+    p.add_argument("--standardize", choices=["before", "after"],
+                   default="before",
+                   help="standardize data before or after the attack "
+                        "(attacks.py:325)")
+    p.add_argument("--strengths", default=None,
+                   help="comma-separated override of the sweep grid")
+    p.add_argument("--out", default=None, help="write curves JSON here")
+    p.add_argument("--plot", default=None,
+                   help="write comparison plot PNG here (needs matplotlib)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-samples", type=int, default=None)
+    _add_device(p)
+
+
+def _add_dolphin(sub):
+    p = sub.add_parser("dolphin", help="generate ultrasound attack WAV")
+    p.add_argument("--voice", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--carrier-khz", type=float, default=30.0)
 
 
 def _add_infer(sub):
@@ -547,7 +578,9 @@ def cmd_certify(args):
     if args.strengths:
         eps = [float(s) for s in args.strengths.split(",")]
     elif args.norm == "linf":
-        eps = [0.0] + list(_FGSM_EPS_STD)
+        from ..attacks.sweeps import GRIDS
+
+        eps = [0.0] + list(GRIDS["fgsm_eps_std"])
     else:
         # scale the grid to where the certificates live, for both models, so
         # a degenerate one cannot collapse it
@@ -564,6 +597,12 @@ def cmd_certify(args):
                          res.certified_unconstrained):
         print(f"eps={s:.6g}: certified constrained={ac * 100:.2f}% "
               f"unconstrained={au * 100:.2f}%")
+    _write_curves(args, res)
+    return 0
+
+
+def _write_curves(args, res):
+    """Print the curves, write --out / --plot, print the JSON line."""
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res.as_dict(), f, indent=2)
@@ -574,6 +613,134 @@ def cmd_certify(args):
         ax = res.plot()
         ax.figure.savefig(args.plot, dpi=120)
     print(json.dumps(res.as_dict()))
+
+
+def _pad_seconds(waves_list, sr):
+    """Variable-length waves -> (B, whole seconds) zero-padded float32 and
+    the true lengths."""
+    cap = -(-max(len(w) for w in waves_list) // sr) * sr
+    waves = np.zeros((len(waves_list), cap), np.float32)
+    lengths = np.zeros((len(waves_list),), np.int64)
+    for i, w in enumerate(waves_list):
+        waves[i, :len(w)] = w
+        lengths[i] = len(w)
+    return waves, lengths
+
+
+def cmd_attack(args):
+    import torch
+
+    from ..attacks.sweeps import (GRIDS, blackbox_sweep, fused_audio_sweep,
+                                  whitebox_sweep)
+    from ..data.pipeline import load_artifacts, standardize_fit_all
+    from ..models.convert import params_from_numpy
+    from ..models.mlp import apply_mlp
+    from ..ops.mfcc_torch import FrontendConfig
+    from ..utils import native
+    from ..utils.device import resolve_device
+
+    if not _need_artifacts(args.data):
+        return 2
+    d = load_artifacts(args.data)
+    audio = args.type in _AUDIO_ATTACKS
+    if audio and d.test_filenames is None:
+        print("error: artifact dir has no test_dataset_to_add_noise/",
+              file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    cfg_c = model_cfg_for(args.task, "constrained")
+    cfg_u = model_cfg_for(args.task, "unconstrained")
+    pc, sc = params_from_numpy(*load_model(args.constrained, cfg_c), dev)
+    pu, su = params_from_numpy(*load_model(args.unconstrained, cfg_u), dev)
+
+    std_before = args.standardize == "before"
+    # the reference's standardize_dataset refits the scaler per sweep point
+    # on [train; val; perturbed test] (`attacks.py:341-343,437-438`); with
+    # standardize-before, train and val are already standardized when that
+    # refit happens (`:327`, then `:342`). Both are replicated.
+    tr_cur, dv_cur, te_cur = d.train_data, d.dev_data, d.test_data
+    if std_before:
+        tr_cur, dv_cur, te_cur, _, _ = standardize_fit_all(tr_cur, dv_cur,
+                                                           te_cur)
+
+    def std(feats):
+        return standardize_fit_all(tr_cur, dv_cur, feats)[2]
+
+    def logits_c(x):
+        return apply_mlp(cfg_c, pc, sc, x, train=False)[0]
+
+    def logits_u(x):
+        return apply_mlp(cfg_u, pu, su, x, train=False)[0]
+
+    def predictor(logits_fn):
+        @torch.no_grad()
+        def predict(x):
+            x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            return torch.softmax(logits_fn(x), -1).cpu().numpy()
+        return predict
+
+    predict_c, predict_u = predictor(logits_c), predictor(logits_u)
+    strengths = None
+    if args.strengths:
+        strengths = [float(s) for s in args.strengths.split(",")]
+    elif args.task == "speaker" and audio:
+        # `Speaker recognition/attacks.py:319-322,336`
+        strengths = list(GRIDS[{"snr_audio": "snrs_db_speaker",
+                                "mixture_audio": "audio_alphas_speaker",
+                                "white_audio": "audio_sigmas_speaker",
+                                }[args.type]])
+    elif args.type == "fgsm" and not std_before:
+        # attacks on raw dB-scale MFCCs take eps linspace(1, 30, 50)
+        # (`Voice digit recogniton/attacks.py:497-499`)
+        strengths = list(GRIDS["fgsm_eps_raw"])
+
+    common = dict(strengths=strengths, seed=args.seed, device=dev)
+    if audio:
+        fe_cfg = getattr(FrontendConfig, args.task)()
+        waves_list = native.decode_resample_batch(list(d.test_filenames),
+                                                  fe_cfg.sr)
+        if args.task == "speaker":
+            # noise the full recording -> 1-s windows -> MFCC (K1)
+            res = blackbox_sweep(
+                args.type, predict_c, predict_u, d.test_audio_label,
+                test_waves_list=waves_list, frontend_cfg=fe_cfg,
+                standardize=std, **common)
+        else:
+            # per point noise -> MFCC (K1) -> refit -> both models on the
+            # device; two accuracies per point reach the host
+            waves, lengths = _pad_seconds(waves_list, fe_cfg.sr)
+            res = fused_audio_sweep(
+                args.type, logits_c, logits_u, d.test_audio_label,
+                test_waves=waves, lengths=lengths, frontend_cfg=fe_cfg,
+                refit_arrays=(tr_cur, dv_cur), **common)
+    elif args.type in ("white_mfcc", "mixture_mfcc"):
+        res = blackbox_sweep(
+            args.type, predict_c, predict_u, d.test_label,
+            test_features=te_cur, standardize=None if std_before else std,
+            **common)
+    else:
+        res = whitebox_sweep(
+            args.type, logits_c, logits_u, predict_c, predict_u, te_cur,
+            d.test_label, standardize=None if std_before else std,
+            max_samples=args.max_samples, **common)
+    for s, ac, au in zip(res.strengths, res.accuracy_constrained,
+                         res.accuracy_unconstrained):
+        print(f"strength={s}: constrained={ac * 100:.2f}% "
+              f"unconstrained={au * 100:.2f}%")
+    _write_curves(args, res)
+    return 0
+
+
+def cmd_dolphin(args):
+    from ..attacks.dolphin import generate_dolphin_wav
+
+    if not os.path.isfile(args.voice):
+        print(f"error: --voice {args.voice!r} is not a file",
+              file=sys.stderr)
+        return 2
+    out = generate_dolphin_wav(args.voice, args.out,
+                               carrier_freq=args.carrier_khz * 1000.0)
+    print(json.dumps({"out": out}))
     return 0
 
 
@@ -585,6 +752,8 @@ _SUBCOMMANDS = {
     "evaluate": (_add_eval, cmd_evaluate),
     "infer": (_add_infer, cmd_infer),
     "certify": (_add_certify, cmd_certify),
+    "attack": (_add_attack, cmd_attack),
+    "dolphin": (_add_dolphin, cmd_dolphin),
 }
 
 

@@ -108,6 +108,21 @@ which raises on failure (the exit code is then non-zero):
            without h5py, else read back bit for bit); each command's wall
            time, the fit's ms an epoch, the checkpoint writes' share of it,
            and the engine's cold and warm latency from the checkpoint;
+  attack   the attack slice on the cli phase's digit checkpoints: `attack`
+           through `cli.main` for all ten types with their default grids
+           (each audio type launching K1 once a sweep point: digit waves
+           padded to whole seconds, noise -> K1 -> the scaler refit -> both
+           models on the card); the fused white-audio sweep at 2 370
+           synthetic 1-s waves on K1 against the same sweep through the plain
+           frontend (curves within 2/n, one point's features within 5e-4),
+           ms a point with K1's share; the speaker sliced SNR sweep on the
+           prepare phase's recordings with full-width init_mlp models, K1's
+           mixed body against the plain frontend the same way; pgd, jsma
+           (fixed targets) and carlini_l2 on 64 rows of the unconstrained
+           checkpoint, the card against the CPU (pgd: 99 % of coordinates
+           within 1e-4; jsma and C&W: success masks on 95 %, perturbation
+           norms within 2 %, accuracy within 2/n) with iterations a second;
+           `dolphin` on a prepare-phase WAV (192 kHz, peak 1);
   timing   K1 against its plain twin at the 1024-row buckets (CUDA events),
            the engine's warm p50/p95 per bucket and ingress dtype, and
            beside each the request's host-to-device copy and K1 timed alone;
@@ -2090,6 +2105,7 @@ def prepare_phase(dev, digit_per_class=256, speakers=20, recs_per_speaker=20,
               f"{h['val_acc'][-1]} did not leave chance")
         out.update(
             digit_artifacts=d_out, digit_audio=os.path.join(ddir, "one"),
+            speaker_artifacts=s_out,
             k4_launches=k4, k5_launches=k5, digit_files=len(art.train_label)
             + len(art.dev_label) + len(art.test_label), digit_s=d_sec,
             speaker_files=len(files), speaker_windows=total, speaker_s=s_sec,
@@ -2421,6 +2437,380 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
     out["walls_s"] = {k: round(v, 3) for k, v in walls.items()}
     print(f"cli wall seconds by command: {out['walls_s']} ({card})",
           flush=True)
+    return out
+
+
+# -- attack phase ----------------------------------------------------------------
+
+ATTACK_TYPES = ("white_mfcc", "mixture_mfcc", "white_audio", "mixture_audio",
+                "snr_audio", "fgsm", "pgd", "jsma", "cw_l2", "cw_linf")
+MFCC_BAR = 5e-4  # K1's MFCC bar against the oracle and the goldens
+
+
+def wb_agreement(got, want, x, y, logits_fn, norm):
+    """The white-box bars between two runs of one attack (card and CPU):
+    success masks (misclassified against y) equal on >= 95 % of samples,
+    the mean perturbation norm of the samples that succeed on both within
+    2 %, adversarial accuracy within 2/n. -> the readings."""
+    import torch
+
+    def stats(adv):
+        with torch.no_grad():
+            pred = torch.argmax(logits_fn(adv), -1).cpu().numpy()
+        return pred != y, norm((adv - x).cpu().numpy())
+
+    s_got, n_got = stats(got)
+    s_want, n_want = stats(want.to(got.device))
+    both = s_got & s_want
+    a, b = (float(n[both].mean()) if both.any() else 0.0
+            for n in (n_got, n_want))
+    return {"mask_agree": float(np.mean(s_got == s_want)),
+            "norm_rel": abs(a - b) / max(b, 1e-12),
+            "acc_diff": abs(float(np.mean(~s_got) - np.mean(~s_want))),
+            "success": float(s_got.mean())}
+
+
+def attack_phase(dev, prep, root, card=None, synth_rows=2370, wb_rows=64,
+                 jsma_iter=16):
+    """The attack slice on the cli phase's digit checkpoints (ck_c on K3,
+    ck_u) and the prepare phase's artifacts and recordings: (a) `attack`
+    through the CLI for all ten types, each audio type launching K1 once a
+    sweep point; (b) the digit fused audio sweep at `synth_rows` 1-s waves
+    on K1 against the same sweep through the plain frontend, timed per
+    point; (c) the speaker sliced SNR sweep on K1's mixed body against the
+    plain frontend; (d) pgd, jsma (fixed targets, at most `jsma_iter`
+    iterations, theta 1) and carlini_l2 on `wb_rows` rows, the card against
+    the CPU;
+    (e) `dolphin` on a prepare-phase WAV. (d) attacks ck_u."""
+    import contextlib
+    import io
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.attacks import blackbox, sweeps
+    from asr_using_robust_nn_tpu_torch.attacks import whitebox as wb
+    from asr_using_robust_nn_tpu_torch.cli.main import (
+        load_model, main as cli_main, model_cfg_for)
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        load_artifacts, slice_seconds, standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.frontend.mfcc import Frontend
+    from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
+    from asr_using_robust_nn_tpu_torch.models.mlp import (
+        MLPConfig, apply_mlp, init_mlp)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+    from asr_using_robust_nn_tpu_torch.utils import native
+    from asr_using_robust_nn_tpu_torch.utils.audio_io import read_wav
+
+    on_card = dev.type == "cuda"
+    card = card or card_line()
+    t_phase = time.perf_counter()
+    art = prep["digit_artifacts"]
+    ck_c, ck_u = os.path.join(root, "ck_c"), os.path.join(root, "ck_u")
+    walls, out, k1_main = {}, {}, 0
+    d_cfg, s_cfg = FrontendConfig.digit(), FrontendConfig.speaker()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def logits_of(cfg, tree, device):
+        p, s = params_from_numpy(*tree, device)
+        return lambda x: apply_mlp(cfg, p, s, x, train=False)[0]
+
+    # ---- (a) every --type through the CLI on the digit pair ------------------
+    base = ["attack", "--data", art, "--constrained", ck_c, "--unconstrained",
+            ck_u]
+    curves = {}
+    for kind in ATTACK_TYPES:
+        mel_power_cuda.launches = 0  # this sweep's main path starts here
+        text, _ = run_cli(dev, f"attack_{kind}", [*base, "--type", kind],
+                          card, walls)
+        k1 = mel_power_cuda.launches  # ... and ends here
+        line = last_json(text)
+        n_pts = len(line["strengths"])
+        accs = np.asarray([line["accuracy_constrained"],
+                           line["accuracy_unconstrained"]])
+        check(line["attack"] == kind and accs.shape == (2, n_pts)
+              and np.all((accs >= 0) & (accs <= 1)),
+              f"attack {kind}: bad curves {line}")
+        if kind.endswith("_audio"):
+            k1_main += k1
+            if on_card:
+                check(k1 == n_pts, f"attack {kind}: K1 launched {k1} times "
+                      f"for {n_pts} sweep points")
+        curves[kind] = {"points": n_pts, "k1_launches": k1,
+                        "wall_s": walls[f"attack_{kind}"],
+                        "constrained": line["accuracy_constrained"],
+                        "unconstrained": line["accuracy_unconstrained"]}
+        print(f"attack {kind}: {n_pts} points, K1 launches {k1}, "
+              f"{walls[f'attack_{kind}']:.2f} s; constrained "
+              f"{[round(v, 3) for v in line['accuracy_constrained']]}, "
+              f"unconstrained "
+              f"{[round(v, 3) for v in line['accuracy_unconstrained']]} "
+              f"({card})", flush=True)
+    out["cli"] = curves
+
+    # ---- (b) the digit fused sweep at the test split's size ---------------------
+    d = load_artifacts(art)
+    cfg_c = model_cfg_for("digit", "constrained")
+    cfg_u = model_cfg_for("digit", "unconstrained")
+    tree_c, tree_u = load_model(ck_c, cfg_c), load_model(ck_u, cfg_u)
+    lc, lu = logits_of(cfg_c, tree_c, dev), logits_of(cfg_u, tree_u, dev)
+    waves = synth_waves(synth_rows, seed=SEED + 70)
+    labels = np.random.default_rng(SEED + 71).integers(0, 10, synth_rows)
+    grid = sweeps.GRIDS["audio_sigmas"]
+    runs = {}
+    for backend in ("cuda", "plain"):
+        kw = dict(test_waves=waves, frontend_cfg=d_cfg,
+                  refit_arrays=(d.train_data, d.dev_data), seed=SEED,
+                  backend=backend, device=dev)
+        sweeps.fused_audio_sweep("white_audio", lc, lu, labels,
+                                 strengths=[0.05], **kw)  # warm
+        sync()
+        mel_power_cuda.launches = 0  # the K1 sweep's main path starts here
+        t0 = time.perf_counter()
+        res = sweeps.fused_audio_sweep("white_audio", lc, lu, labels, **kw)
+        sync()
+        sec = time.perf_counter() - t0
+        if backend == "cuda":
+            k1 = mel_power_cuda.launches  # ... and ends here
+            k1_main += k1
+            if on_card:
+                check(k1 == len(grid), f"fused sweep: K1 launched {k1} times "
+                      f"for {len(grid)} points")
+        runs[backend] = (res, 1e3 * sec / len(grid))
+    res_k, res_p = runs["cuda"][0], runs["plain"][0]
+    gap = max(np.abs(res_k.accuracy_constrained
+                     - res_p.accuracy_constrained).max(),
+              np.abs(res_k.accuracy_unconstrained
+                     - res_p.accuracy_unconstrained).max())
+    check(gap <= 2 / synth_rows, f"fused sweep on K1 vs plain: curves "
+          f"differ by {gap} (bar 2/n = {2 / synth_rows})")
+    # one point's features, K1 against the plain frontend on the same noise
+    wt = torch.from_numpy(waves).to(dev)
+    i_pt = 5
+    noisy = blackbox.apply_noise("white", wt, blackbox.unit_draws(
+        "white", wt.shape, sweeps.point_generator(SEED, i_pt, dev)),
+        sigma=float(grid[i_pt]))
+    fk = Frontend(d_cfg, backend="cuda", device=dev).flat(noisy)
+    fp = Frontend(d_cfg, backend="plain", device=dev).flat(noisy)
+    feat_err = float(torch.max(torch.abs(fk - fp)))
+    check(feat_err <= MFCC_BAR, f"fused sweep point {i_pt}: K1 features "
+          f"{feat_err} from the plain frontend (bar {MFCC_BAR})")
+    k1_ms = point_ms = None
+    if on_card:
+        point_ms = runs["cuda"][1]
+        k1_ms = time_ms(lambda: mel_power_cuda(noisy, d_cfg), 3)
+    out["fused"] = {
+        "rows": synth_rows, "points": len(grid), "ms_per_point": point_ms,
+        "plain_ms_per_point": runs["plain"][1] if on_card else None,
+        "k1_ms": k1_ms, "k1_share": (k1_ms / point_ms) if on_card else None,
+        "curve_gap": float(gap), "feature_err": feat_err,
+        "constrained": res_k.accuracy_constrained.tolist()}
+    print(f"attack fused sweep: {synth_rows} rows x {len(grid)} points on K1: "
+          f"{point_ms} ms a point (plain frontend "
+          f"{out['fused']['plain_ms_per_point']} ms), K1 alone {k1_ms} ms a "
+          f"point = share {out['fused']['k1_share']}; curves vs plain within "
+          f"{gap:.2e} (bar {2 / synth_rows:.2e}); point {i_pt} features vs "
+          f"plain max_abs {feat_err:.3e} (bar {MFCC_BAR}) ({card})",
+          flush=True)
+
+    # ---- (c) the speaker sliced sweep (K1's mixed body) ---------------------------
+    s_art = load_artifacts(prep["speaker_artifacts"])
+    recs = native.decode_resample_batch(list(s_art.test_filenames), s_cfg.sr)
+    s_models = []
+    for v, seed in (("constrained", SEED + 72), ("unconstrained", SEED + 73)):
+        cfg = getattr(MLPConfig, f"speaker_{v}")()
+        p, s = init_mlp(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+
+        @torch.no_grad()
+        def predict(x, cfg=cfg, p=p, s=s):
+            x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            return torch.softmax(apply_mlp(cfg, p, s, x)[0], -1).cpu().numpy()
+
+        s_models.append(predict)
+
+    def s_std(feats):
+        return standardize_fit_all(s_art.train_data, s_art.dev_data,
+                                   feats)[2]
+
+    s_grid = sweeps.GRIDS["snrs_db_speaker"]
+    s_runs = {}
+    for backend in ("cuda", "plain"):
+        mel_power_cuda.launches = 0  # the speaker sweep's main path starts
+        t0 = time.perf_counter()
+        s_runs[backend] = sweeps.blackbox_sweep(
+            "snr_audio", *s_models, s_art.test_audio_label, strengths=s_grid,
+            test_waves_list=recs, frontend_cfg=s_cfg, standardize=s_std,
+            seed=SEED, backend=backend, device=dev)
+        sync()
+        s_sec = time.perf_counter() - t0
+        if backend == "cuda":
+            k1 = mel_power_cuda.launches  # ... and ends here
+            k1_main += k1
+            s_ms = 1e3 * s_sec / len(s_grid)
+            if on_card:
+                check(k1 == len(s_grid), f"speaker sweep: K1 launched {k1} "
+                      f"times for {len(s_grid)} points")
+    n_win = sum(len(slice_seconds(r, s_cfg.sr)) for r in recs)
+    s_gap = max(np.abs(s_runs["cuda"].accuracy_constrained
+                       - s_runs["plain"].accuracy_constrained).max(),
+                np.abs(s_runs["cuda"].accuracy_unconstrained
+                       - s_runs["plain"].accuracy_unconstrained).max())
+    check(s_gap <= 2 / n_win, f"speaker sweep on K1 vs plain: curves differ "
+          f"by {s_gap} (bar 2/n = {2 / n_win})")
+    i_pt = 4
+    feats = []
+    for backend in ("cuda", "plain"):
+        t0 = time.perf_counter()
+        feats.append(blackbox.audio_noise_features_sliced(
+            recs, s_art.test_audio_label, s_cfg,
+            sweeps.point_generator(SEED, i_pt, dev),
+            snr_db=float(s_grid[i_pt]), backend=backend, device=dev)[0])
+        if backend == "cuda":
+            feat_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    s_std(feats[0])
+    std_ms = 1e3 * (time.perf_counter() - t0)
+    s_err = float(np.abs(feats[0] - feats[1]).max())
+    check(s_err <= MFCC_BAR, f"speaker sweep point {i_pt}: K1 features "
+          f"{s_err} from the plain frontend (bar {MFCC_BAR})")
+    out["speaker"] = {"recordings": len(recs), "windows": n_win,
+                      "points": len(s_grid), "ms_per_point": s_ms,
+                      "features_ms": feat_ms, "refit_ms": std_ms,
+                      "curve_gap": float(s_gap), "feature_err": s_err,
+                      "models": "init_mlp (seeded), full width"}
+    print(f"attack speaker sweep: {len(recs)} recordings -> {n_win} windows "
+          f"x {len(s_grid)} SNR points on K1's mixed body, {s_ms:.2f} ms a "
+          f"point (of it noise -> slice -> K1 features {feat_ms:.2f} ms, the "
+          f"host refit of the scaler {std_ms:.2f} ms); curves vs plain within {s_gap:.2e} (bar 2/n "
+          f"{2 / n_win:.2e}); point {i_pt} features vs plain max_abs "
+          f"{s_err:.3e} (bar {MFCC_BAR}); models init_mlp ({card})",
+          flush=True)
+
+    # ---- (d) white-box attacks: the card against the CPU ------------------------
+    cpu = torch.device("cpu")
+    te = standardize_fit_all(d.train_data, d.dev_data,
+                             d.test_data)[2][:wb_rows].astype(np.float32)
+    ty = d.test_label[:wb_rows].astype(np.int64)
+    targets = (ty + 1) % cfg_u.n_classes
+    lf = {(m, dv.type): logits_of(cfg, tree, dv)
+          for m, cfg, tree in (("c", cfg_c, tree_c), ("u", cfg_u, tree_u))
+          for dv in (dev, cpu)}
+    # pgd and C&W attack the constrained model. JSMA attacks the
+    # unconstrained one: ck_c's NonNeg kernels (and positive BN gains) give
+    # every logit a gradient of one sign, where JSMA finds no valid pair
+    # (a_p + a_q > 0 with b_p + b_q < 0) and stops after one step; theta 1
+    # (the sweep's 10 reaches most targets in one step) so that both sides
+    # walk several saliency steps
+    attacks = {
+        "pgd": ("c", lambda f, x, y: wb.pgd(f, x, y, 1.0), None),
+        "jsma": ("u", lambda f, x, y: wb.jsma(f, x, targets=torch.as_tensor(
+            targets, device=x.device), theta=1.0, max_iter=jsma_iter),
+            lambda a: np.sum(np.abs(a) > 1e-6, -1).astype(np.float64)),
+        "cw_l2": ("c", lambda f, x, y: wb.carlini_l2(f, x, y),
+                  lambda a: np.sqrt(np.sum(a.astype(np.float64) ** 2, -1))),
+    }
+    calls = [0]
+    wbo = {}
+    for name, (m, fn, norm) in attacks.items():
+        def counted(x):  # jsma calls the model once, then twice a step
+            calls[0] += 1
+            return lf[m, dev.type](x)
+
+        adv = {}
+        for dv in (dev, cpu):
+            x = torch.from_numpy(te).to(dv)
+            y = torch.from_numpy(ty).to(dv)
+            if dv.type == "cuda":
+                fn(lf[m, "cuda"], x[:4], y[:4])  # warm
+                sync()
+            calls[0] = 0
+            t0 = time.perf_counter()
+            adv[dv.type] = fn(counted if dv == dev else lf[m, "cpu"], x, y)
+            if dv.type == "cuda":
+                sync()
+            wbo.setdefault(name, {"model": f"ck_{m}"})[f"{dv.type}_s"] = \
+                time.perf_counter() - t0
+            if dv == dev:
+                iters = {"pgd": 100, "cw_l2": 100,
+                         "jsma": (calls[0] - 1) // 2}[name]
+        got, want = adv[dev.type], adv["cpu"].to(dev)
+        if norm is None:  # pgd: coordinates and the ball
+            close = float(torch.mean((torch.abs(got - want) <= 1e-4).float()))
+            linf = float(torch.max(torch.abs(got - torch.from_numpy(te).to(
+                dev))))
+            check(close >= 0.99 and linf <= 1.0 + 1e-6, f"pgd card vs CPU: "
+                  f"{close:.4f} of coordinates within 1e-4 (bar 0.99), "
+                  f"L-inf {linf} (bar eps + 1e-6)")
+            wbo[name].update(close=close, linf=linf)
+        else:
+            a = wb_agreement(got, want, torch.from_numpy(te).to(dev), ty,
+                             lf[m, dev.type], norm)
+            check(a["mask_agree"] >= 0.95 and a["norm_rel"] <= 0.02
+                  and a["acc_diff"] <= 2 / wb_rows,
+                  f"{name} card vs CPU: {a} (bars 0.95, 0.02, 2/n)")
+            wbo[name].update(a)
+        wbo[name].update(iters=iters,
+                         iters_per_s=iters / wbo[name][f"{dev.type}_s"])
+        print(f"attack {name}: {wb_rows} rows of ck_{m}, card vs CPU "
+              f"{ {k: v for k, v in wbo[name].items() if not k.endswith('_s')} }"
+              f"; {wbo[name][f'{dev.type}_s']:.3f} s on {dev.type} "
+              f"({wbo[name]['iters_per_s']:.1f} iterations/s), "
+              f"{wbo[name]['cpu_s']:.3f} s on the CPU ({card})", flush=True)
+    # a reading, not a bar: pgd on the unconstrained model, free-running on
+    # both sides, then in lockstep (both gradients at the CPU's iterate),
+    # which shows where the trajectories part: sign flips of whole rows'
+    # gradients at steps where a ReLU input of the row sits within rounding
+    # of 0 and the two sides take different branches
+    x, y = torch.from_numpy(te), torch.from_numpy(ty)
+    free = wb.pgd(lf["u", dev.type], x.to(dev), y.to(dev), 1.0).cpu()
+    close_u = float(torch.mean((torch.abs(
+        free - wb.pgd(lf["u", "cpu"], x, y, 1.0)) <= 1e-4).float()))
+    xa, flips, worst = x.clone(), [], 0.0
+    for step in range(100):
+        gc = wb._grad_ce(lf["u", "cpu"], xa, y)
+        gg = wb._grad_ce(lf["u", dev.type], xa.to(dev), y.to(dev)).cpu()
+        scale = gc.abs().amax(1, keepdim=True)
+        n_flip = int((torch.sign(gc) != torch.sign(gg)).sum())
+        if n_flip:
+            flips.append((step, n_flip))
+            worst = max(worst, float(((gg - gc).abs() / scale).max()))
+        xa = x + torch.clamp(xa + 0.1 * torch.sign(gc) - x, -1.0, 1.0)
+    wbo["pgd_unconstrained_reading"] = {"close": close_u, "flips": flips,
+                                        "worst_grad_rel": worst}
+    print(f"attack pgd on ck_u (a reading, not a bar): {close_u:.4f} of "
+          f"coordinates within 1e-4 free-running; in lockstep, sign flips "
+          f"(step, coordinates) {flips}, the largest |g_card - g_cpu| at a "
+          f"flip step {worst:.3e} of the row's largest |g| ({card})",
+          flush=True)
+    out["whitebox"] = wbo
+
+    # ---- (e) dolphin on a prepare-phase WAV ------------------------------------
+    voice = sorted(os.path.join(prep["digit_audio"], f)
+                   for f in os.listdir(prep["digit_audio"]))[0]
+    ultra = os.path.join(root, "dolphin.wav")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["dolphin", "--voice", voice, "--out", ultra])
+    walls["dolphin"] = time.perf_counter() - t0
+    samples, rate = read_wav(ultra)
+    peak = float(np.abs(samples).max())
+    check(rc == 0 and last_json(buf.getvalue()) == {"out": ultra}
+          and rate == 192_000 and abs(peak - 1.0) <= 1e-4,
+          f"dolphin: rc {rc}, rate {rate}, peak {peak}")
+    print(f"attack dolphin: {os.path.basename(voice)} -> {samples.shape[1]} "
+          f"samples at {rate} Hz, peak {peak:.5f}, {walls['dolphin']:.2f} s",
+          flush=True)
+
+    out["k1_launches"] = k1_main
+    out["walls_s"] = {k: round(v, 3) for k, v in walls.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"attack phase: K1 launches on the main path {k1_main}; wall "
+          f"{out['phase_s']:.1f} s; CLI seconds by type {out['walls_s']} "
+          f"({card})", flush=True)
     return out
 
 
@@ -3116,6 +3506,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         prep = timed("prepare", prepare_phase, dev, root=root)
         cli = timed("cli", cli_phase, dev, prep, root, card=card)
+        atk = timed("attack", attack_phase, dev, prep, root, card=card)
     timing = timed("timing", timing_phase, dev, serve.pop("engine"),
                    serve.pop("speaker_engine"), serve.pop("recording"))
     ttime = timed("train_timing", train_timing_phase, dev, k3_args)
@@ -3141,6 +3532,7 @@ def main() -> int:
         "replaces": REPLACES, "launches": serve["launches"],
         "train_launches": split["k1_launches"],
         "cli_launches": cli["k1_launches"],
+        "attack_launches": atk["k1_launches"],
         "max_abs_err": kern["max_abs_err"],
         "max_rel_err": kern["max_rel_err"],
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain "
@@ -3315,6 +3707,7 @@ def main() -> int:
         "train": train,
         "prepare": {**prep, **ftime["prepare"]},
         "cli": cli,
+        "attack": atk,
         "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"},
         "k6_vs_twin": {k: v for k, v in k6.items() if k != "max_abs_err"},
         "multi_run": {**mrun, "fused_ms_per_run_epoch":

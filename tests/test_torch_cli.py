@@ -91,7 +91,8 @@ def _last_json(capsys):
 
 def test_subcommand_table():
     assert list(cli._SUBCOMMANDS) == ["prepare-data", "train", "evaluate",
-                                      "infer", "certify"]
+                                      "infer", "certify", "attack",
+                                      "dolphin"]
     with pytest.raises(SystemExit):
         main([])
     with pytest.raises(SystemExit):  # F5: the engine has no backend switch
