@@ -14,13 +14,17 @@
   ... attack --type fgsm --data processed/ --constrained runs/digit_c \
       --unconstrained runs/digit_u --standardize before
   ... dolphin --voice seven.wav --out attack.wav
+  ... train-multi --task digit --variant constrained --data processed/ \
+      --ckpt runs/study --seeds 0,1,2,3 --rhos 0.05,0.1
+  ... profile --task digit --out traces/
 
-Every subcommand but `dolphin` (numpy and scipy on the host) runs on
-`--device` (default `cuda`, an error where there is none; `--device cpu` for
-the CPU). A checkpoint is a store dir written by `train --ckpt` (`best.npz` +
-`meta.json`, train/checkpoints.py) or a Keras layout `.h5` (read and written
-only where h5py is installed). `--plot` needs matplotlib. Not ported yet:
-`train-multi`, `bench` and `profile` (ROADMAP.md queue 1).
+(also `python -m asr_using_robust_nn_tpu_torch ...`). Every subcommand but
+`dolphin` (numpy and scipy on the host) runs on `--device` (default `cuda`,
+an error where there is none; `--device cpu` for the CPU). A checkpoint is a
+store dir written by `train --ckpt` (`best.npz` + `meta.json`,
+train/checkpoints.py) or a Keras layout `.h5` (read and written only where
+h5py is installed). `--plot` needs matplotlib. Not ported yet: `bench`
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ __all__ = ["main", "model_cfg_for", "load_model"]
 _ATTACKS = ("white_mfcc", "mixture_mfcc", "white_audio", "mixture_audio",
             "snr_audio", "fgsm", "pgd", "jsma", "cw_l2", "cw_linf")
 _AUDIO_ATTACKS = ("white_audio", "mixture_audio", "snr_audio")
+_FRONTENDS = ["auto", *sorted(Frontend._BACKENDS)]
 
 
 def _add_device(p):
@@ -53,8 +58,8 @@ def _add_prepare(sub):
     p.add_argument("--data-dir", required=True)
     p.add_argument("--out-dir", required=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--backend", default="cuda",
-                   choices=sorted(Frontend._BACKENDS))
+    p.add_argument("--backend", default="auto", choices=_FRONTENDS,
+                   help="frontend backend (frontend/mfcc.py; default auto)")
     _add_device(p)
 
 
@@ -115,6 +120,62 @@ def _add_train(sub):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 operands in every Dense GEMM, fp32 sums and "
                         "master weights (models/mlp.py MLPConfig.with_bf16)")
+    _add_device(p)
+
+
+def _add_train_multi(sub):
+    p = sub.add_parser(
+        "train-multi",
+        help="train a seeds x rhos grid of runs on one device-resident split "
+             "(train/multi_run.py: the plain backend trains the runs as one "
+             "batched program, the fused one replays K3 per run)")
+    p.add_argument("--task", choices=["digit", "speaker"], required=True)
+    p.add_argument("--variant", choices=["unconstrained", "constrained"],
+                   default="unconstrained")
+    p.add_argument("--data", required=True,
+                   help="artifact dir from prepare-data")
+    p.add_argument("--ckpt", required=True,
+                   help="checkpoint root; run r saves under "
+                        "<ckpt>/run<r>_seed<s>[_rho<rho>]/")
+    p.add_argument("--seeds", required=True,
+                   help="comma-separated seed list, one training run each")
+    p.add_argument("--rhos", default=None,
+                   help="comma-separated Lipschitz targets; forms the full "
+                        "seeds x rhos grid (constrained only)")
+    p.add_argument("--constraint",
+                   choices=["simple", "norm", "fista", "custom", "none"],
+                   default="simple")
+    p.add_argument("--epochs", type=int, default=10000)
+    p.add_argument("--patience", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs-per-dispatch", type=int, default=8,
+                   help="epochs a call (early-stopping granularity)")
+    p.add_argument("--epoch-backend", choices=["plain", "fused"],
+                   default="plain",
+                   help="'plain' = the runs as one batched autograd program "
+                        "(any constraint); 'fused' = K3 a run (no constraint "
+                        "or the full simple_norm at one rho); dropout draws "
+                        "differ between them, so keep one backend across a "
+                        "merged study")
+    p.add_argument("--runs-mesh", action="store_true",
+                   help="shard the runs axis across devices (not ported "
+                        "yet)")
+    p.add_argument("--no-standardize", action="store_true")
+    p.add_argument("--bf16", action="store_true")
+    _add_device(p)
+
+
+def _add_profile(sub):
+    p = sub.add_parser(
+        "profile",
+        help="torch.profiler trace of the training step and the frontend on "
+             "synthetic data (trace.json: Perfetto or chrome://tracing)")
+    p.add_argument("--task", choices=["digit", "speaker"], default="digit")
+    p.add_argument("--variant", choices=["unconstrained", "constrained"],
+                   default="constrained")
+    p.add_argument("--out", required=True, help="trace output directory")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--batch-size", type=int, default=512)
     _add_device(p)
 
 
@@ -196,6 +257,9 @@ def _add_infer(sub):
     p.add_argument("--buckets", default=None,
                    help="comma-separated ascending batch-padding ladder "
                         "(default 16,64,256,1024)")
+    p.add_argument("--backend", default="auto", choices=_FRONTENDS,
+                   help="frontend backend (frontend/mfcc.py; default auto: "
+                        "K1 on the card)")
     _add_device(p)
 
 
@@ -449,6 +513,189 @@ def cmd_train(args):
     return 0
 
 
+def cmd_train_multi(args):
+    try:
+        seeds = [int(v) for v in args.seeds.split(",") if v.strip()]
+    except ValueError:
+        print(f"error: --seeds must be comma-separated ints, got "
+              f"{args.seeds!r}", file=sys.stderr)
+        return 2
+    if not seeds:
+        print("error: --seeds is empty", file=sys.stderr)
+        return 2
+    rhos = None
+    if args.rhos is not None:
+        try:
+            rhos = [float(r) for r in args.rhos.split(",") if r.strip()]
+        except ValueError:
+            print(f"error: --rhos must be comma-separated floats, got "
+                  f"{args.rhos!r}", file=sys.stderr)
+            return 2
+        if args.variant != "constrained" or args.constraint == "none":
+            print("error: --rhos needs --variant constrained and a "
+                  "--constraint algorithm", file=sys.stderr)
+            return 2
+    if args.runs_mesh:
+        print("error: --runs-mesh: sharding the runs axis over devices is "
+              "not ported yet (ROADMAP.md queue 1 item 10, the parallel "
+              "slice)", file=sys.stderr)
+        return 2
+    if not _need_artifacts(args.data):
+        return 2
+    import torch
+
+    from ..constraints import (make_custom_constraint, make_fista_constraint,
+                               make_norm_constraint,
+                               make_simple_norm_constraint)
+    from ..data.pipeline import load_artifacts, standardize_fit_all
+    from ..parallel.mesh import pad_to_multiple
+    from ..train.checkpoints import CheckpointManager
+    from ..train.multi_run import build_multi_run_eval_fn, fit_multi_run
+    from ..train.trainer import TrainConfig, _tree_map
+    from ..utils.device import resolve_device
+
+    d = load_artifacts(args.data)
+    if args.no_standardize:
+        tr, dv, te = d.train_data, d.dev_data, d.test_data
+    else:
+        tr, dv, te, _, _ = standardize_fit_all(d.train_data, d.dev_data,
+                                               d.test_data)
+    cfg = model_cfg_for(args.task, args.variant)
+    if args.bf16:
+        cfg = cfg.with_bf16()
+    defaults = _REF_DEFAULTS[(args.task, args.variant)]
+    tcfg = TrainConfig(
+        batch_size=args.batch_size or defaults["batch"], epochs=args.epochs,
+        patience=(args.patience if args.patience is not None
+                  else defaults["patience"]),
+        device_resident=True, epochs_per_dispatch=args.epochs_per_dispatch)
+
+    kw = {}
+    if args.variant == "constrained" and args.constraint != "none":
+        factory = {
+            "simple": make_simple_norm_constraint,
+            "norm": make_norm_constraint,
+            "fista": lambda rho: make_fista_constraint(rho, nit=2),
+            "custom": make_custom_constraint,
+        }[args.constraint]
+        rhos = rhos or [_REF_RHO[args.task]]
+        # the full seeds x rhos grid, paired elementwise for fit_multi_run
+        grid = [(s, r) for s in seeds for r in rhos]
+        if len(set(rhos)) == 1:
+            # one rho: a fixed constraint (the same projection every run),
+            # which the fused backend takes when it is the full simple_norm
+            con = factory(rhos[0])
+            kw = dict(constraint=con.apply, constraint_init=con.init)
+        else:
+            kw = dict(constraint_factory=factory, rhos=[r for _, r in grid])
+    else:
+        grid = [(s, None) for s in seeds]
+    if args.epoch_backend == "fused" and (
+            "constraint_factory" in kw
+            or (kw and args.constraint != "simple")):
+        print("error: --epoch-backend fused takes no constraint or "
+              "--constraint simple at one rho (the fused epoch's "
+              "configurations); use --epoch-backend plain", file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    res = fit_multi_run(cfg, tcfg, tr, d.train_label, dv, d.dev_label,
+                        [s for s, _ in grid], epoch_backend=args.epoch_backend,
+                        device=dev, **kw)
+
+    # one test evaluation of every run's best snapshot, then a store a run
+    vb = 1024 if len(te) >= 1024 else max(8, len(te))
+    te_p, _ = pad_to_multiple(np.asarray(te, np.float32), vb)
+    tl_p, _ = pad_to_multiple(np.asarray(d.test_label, np.int64), vb)
+    on_dev = lambda t: t.to(dev)  # noqa: E731
+    t_loss, t_acc = build_multi_run_eval_fn(cfg, batch_size=vb)(
+        _tree_map(on_dev, res["best_params"]),
+        _tree_map(on_dev, res["best_state"]),
+        torch.from_numpy(te_p).to(dev), torch.from_numpy(tl_p).to(dev),
+        len(te))
+    t_loss, t_acc = t_loss.cpu().numpy(), t_acc.cpu().numpy()
+    take = lambda tree, r: _tree_map(lambda t: t[r], tree)  # noqa: E731
+    runs = []
+    for r, (seed, rho) in enumerate(grid):
+        sub = (f"run{r}_seed{seed}" if rho is None
+               else f"run{r}_seed{seed}_rho{rho:g}")
+        ck_dir = os.path.join(args.ckpt, sub)
+        CheckpointManager(ck_dir).save_best(
+            take(res["best_params"], r), take(res["best_state"], r),
+            take(res["best_opt_state"], r),
+            epoch=int(res["best_epoch"][r]),
+            val_loss=float(res["best_val_loss"][r]))
+        runs.append({
+            "seed": seed, "rho": rho,
+            "best_val_loss": float(res["best_val_loss"][r]),
+            "epochs_run": int(res["epochs_run"][r]),
+            "test_loss": float(t_loss[r]),
+            "test_accuracy": float(t_acc[r]),
+            "ckpt": ck_dir,
+        })
+        print(f"run {r} seed={seed} rho={rho}: val_loss="
+              f"{res['best_val_loss'][r]:.4f} test_acc={t_acc[r]:.4f} "
+              f"({res['epochs_run'][r]} epochs) -> {ck_dir}")
+    print(json.dumps({"runs": runs, "n_runs": len(grid),
+                      "fused_dispatches": len(res["history"]["val_loss"])}))
+    return 0
+
+
+def cmd_profile(args):
+    """A synthetic-data trace of the training step and the frontend
+    (`utils/profiling.py::trace`): one warm-up step outside the trace, then
+    `--steps` `Trainer.train_step`s and one `Frontend` call on 128
+    one-second waves inside it."""
+    if args.steps < 1:
+        print("error: --steps must be >= 1", file=sys.stderr)
+        return 2
+    import torch
+
+    from ..constraints import make_simple_norm_constraint
+    from ..models.mlp import init_mlp
+    from ..ops.mfcc_torch import FrontendConfig
+    from ..train.trainer import Trainer, TrainConfig, _tree_map
+    from ..utils.device import resolve_device
+    from ..utils.profiling import trace
+
+    dev = resolve_device(args.device)
+    cfg = model_cfg_for(args.task, args.variant)
+    fe_cfg = getattr(FrontendConfig, args.task)()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (args.batch_size, cfg.in_dim)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, args.batch_size)
+                         .astype(np.int64)).to(dev)
+    waves = (rng.standard_normal((128, fe_cfg.sr)) * 0.1).astype(np.float32)
+
+    kw = {}
+    params, state = init_mlp(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    if args.variant == "constrained":
+        con = make_simple_norm_constraint(_REF_RHO[args.task], n_iter=4)
+        kw = dict(constraint=con.apply, constraint_state=con.init(params))
+    trainer = Trainer(cfg, TrainConfig(batch_size=args.batch_size),
+                      device=dev, **kw)
+    fe = Frontend(fe_cfg, device=dev)
+    opt_state = trainer.optimizer.init(params)
+    cstate = _tree_map(lambda t: t.clone(), kw.get("constraint_state"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # warm up outside the trace, so that it shows the steady state
+    params, state, opt_state, cstate, loss, _ = trainer.train_step(
+        params, state, opt_state, cstate, x, y, gen)
+    fe(waves)
+    sync()
+    with trace(args.out):
+        for _ in range(args.steps):
+            params, state, opt_state, cstate, loss, _ = trainer.train_step(
+                params, state, opt_state, cstate, x, y, gen)
+        fe(waves)
+        sync()
+    print(json.dumps({"trace_dir": args.out, "steps": args.steps,
+                      "final_loss": float(loss)}))
+    return 0
+
+
 def cmd_evaluate(args):
     from ..data.pipeline import load_artifacts, standardize_fit_all
     from ..models.convert import params_from_numpy
@@ -495,7 +742,7 @@ def cmd_evaluate(args):
 def cmd_infer(args):
     from ..serve.engine import InferenceEngine
 
-    kw = {}
+    kw = {"backend": args.backend}
     if args.buckets is not None:
         try:
             kw["buckets"] = tuple(int(b) for b in args.buckets.split(","))
@@ -749,11 +996,13 @@ def cmd_dolphin(args):
 _SUBCOMMANDS = {
     "prepare-data": (_add_prepare, cmd_prepare),
     "train": (_add_train, cmd_train),
+    "train-multi": (_add_train_multi, cmd_train_multi),
     "evaluate": (_add_eval, cmd_evaluate),
     "infer": (_add_infer, cmd_infer),
     "certify": (_add_certify, cmd_certify),
     "attack": (_add_attack, cmd_attack),
     "dolphin": (_add_dolphin, cmd_dolphin),
+    "profile": (_add_profile, cmd_profile),
 }
 
 

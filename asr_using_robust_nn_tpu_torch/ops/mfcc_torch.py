@@ -8,7 +8,12 @@ package's `ops/mfcc_xla.py`.
     C  = D @ Dct^T                                # cepstral projection
 
 `mfcc_torch_batch` is the plain pipeline: the rDFT -> power -> mel chain
-in fp32 GEMMs (`mel_power_plain`), then the dB/DCT finish. The chain has
+in fp32 GEMMs (`mel_power_plain`), then the dB/DCT finish. With
+`cfg.dft_split_levels = L > 0` the rDFT runs as L radix-2 decimation-in-time
+stages over 2^L leaf GEMMs of n_fft / 2^L points (`rdft_power_split`, the
+JAX package's `_rdft_power_split`). `mfcc_fft_batch` is the same pipeline
+with the spectrum from `torch.fft.rfft` of the windowed frames (the JAX
+package's `mfcc_fft_batch`). The chain has
 hand-written CUDA kernels beside their plain twins in `ops/cuda_mfcc.py`
 (fp32 products, fp64 sums), `ops/cuda_mfcc_int8.py` (int8 digits) and
 `ops/cuda_mfcc_x3.py` (three-pass bf16); all share `finish_mfcc_from_mel`,
@@ -40,7 +45,10 @@ __all__ = [
     "frame_signal",
     "finish_mfcc_from_mel",
     "device_constants",
+    "mel_power_plain",
+    "rdft_power_split",
     "mfcc_torch_batch",
+    "mfcc_fft_batch",
 ]
 
 _DFT_ALGORITHMS = ("bf16_x6", "bf16_x3")
@@ -54,11 +62,14 @@ class FrontendConfig:
     `speaker()` the overrides win_length=441, n_fft=441, hop_length=220.
 
     The fields equal the JAX package's `FrontendConfig` one for one, so two
-    configs compare equal field by field. `precision`, `dft_split_levels`
-    and `dft_algorithm="bf16_x6"` steer only the JAX package's XLA einsums;
-    the port ignores them (its precision is set per path: ops/cuda_mfcc.py).
-    `dft_algorithm="bf16_x3"` is honoured by the plain path
-    (`mel_power_plain`): its DFT products run as three bf16 passes.
+    configs compare equal field by field. `precision` and
+    `dft_algorithm="bf16_x6"` steer only the JAX package's XLA einsums; the
+    port ignores them (its precision is set per path: ops/cuda_mfcc.py).
+    The plain path (`mel_power_plain`) honours the other two:
+    `dft_algorithm="bf16_x3"` runs its DFT products as three bf16 passes,
+    and `dft_split_levels = L > 0` computes the rDFT by L radix-2 stages
+    (`rdft_power_split`; needs 2^(L+1) | n_fft and 2^L | hop). The kernels
+    compute the same function and ignore the split.
     """
 
     sr: int = 22050
@@ -212,25 +223,133 @@ def matmul_bf16x3(a_hi, a_lo, b_hi, b_lo) -> torch.Tensor:
     return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
 
 
+def _dft_product(x, c, cfg):
+    """x @ c for the rDFT products: fp32, or three bf16 passes under
+    `cfg.dft_algorithm="bf16_x3"`."""
+    if cfg.dft_algorithm == "bf16_x3":
+        return matmul_bf16x3(*bf16x3_split(x), *bf16x3_split(c))
+    return x @ c
+
+
+@functools.lru_cache(maxsize=16)
+def _split_constants(n_fft: int, win_length: int, levels: int,
+                     device: torch.device):
+    """The radix-2 split's fp32 tensors on `device`: each leaf's windowed
+    (n, n/2 + 1) [cos | -sin] DFT, keyed by (offset, step), and each level's
+    twiddles e^(-2 pi i k / n), k <= n/2, keyed by n."""
+    window = filters.pad_center(filters.hann_window(win_length), n_fft)
+    p_count = 1 << levels
+    n_leaf = n_fft // p_count
+    k = np.arange(n_leaf // 2 + 1, dtype=np.float64)
+    nn = np.arange(n_leaf, dtype=np.float64)
+    ang = 2.0 * np.pi * nn[:, None] * k[None, :] / n_leaf
+    put = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a.astype(np.float32))).to(device)
+    leaves = {}
+    for offset in range(p_count):
+        w_sub = window[offset::p_count][:, None]
+        leaves[offset] = (put(np.cos(ang) * w_sub), put(-np.sin(ang) * w_sub))
+    twiddles = {}
+    n = n_leaf * 2
+    while n <= n_fft:
+        kk = np.arange(n // 2 + 1, dtype=np.float64)
+        twiddles[n] = (put(np.cos(2.0 * np.pi * kk / n)),
+                       put(-np.sin(2.0 * np.pi * kk / n)))
+        n *= 2
+    return leaves, twiddles
+
+
+def rdft_power_split(ypad: torch.Tensor, n_frames: int, cfg: FrontendConfig
+                     ) -> torch.Tensor:
+    """|rDFT|^2 of the windowed frames of a center-padded (B, Lpad) batch
+    by `cfg.dft_split_levels` radix-2 decimation-in-time stages ->
+    (B, T, n_freq): the JAX package's `_rdft_power_split`.
+
+    The stream is de-interleaved once into 2^L phase streams, each framed
+    at n_fft / 2^L points and hop / 2^L; each leaf is one windowed DFT GEMM
+    over bins 0..n/2; each stage extends its halves to bins 0..m by
+    conjugate symmetry and period m and joins them with exact fp32
+    butterflies. Needs 2^(L+1) | n_fft (every half length even) and 2^L |
+    hop, else ValueError."""
+    levels, n_fft, hop = cfg.dft_split_levels, cfg.n_fft, cfg.hop_length
+    p_count = 1 << levels
+    if n_fft % (p_count * 2) or hop % p_count:
+        raise ValueError(
+            f"dft_split_levels={levels} needs 2^(levels+1) | n_fft and "
+            f"2^levels | hop (got n_fft={n_fft}, hop={hop})")
+    leaves, twiddles = _split_constants(n_fft, cfg.win_length, levels,
+                                        ypad.device)
+    n_sub = n_fft // p_count
+    frames = [frame_signal(ypad[:, p::p_count], n_frames, n_sub,
+                           hop // p_count) for p in range(p_count)]
+
+    def extend(re, im, m):
+        """bins 0..m/2 -> 0..m by conjugate symmetry and period m"""
+        half = m // 2
+        mirror = torch.arange(half - 1, 0, -1, device=re.device)
+        return (torch.cat([re, re[..., mirror], re[..., :1]], -1),
+                torch.cat([im, -im[..., mirror], im[..., :1]], -1))
+
+    def rec(offset, step, n, lvl):
+        """(re, im), bins 0..n/2 of the windowed x[offset::step], length n"""
+        if lvl == 0:
+            cr, ci = leaves[offset]
+            x = frames[offset]
+            return _dft_product(x, cr, cfg), _dft_product(x, ci, cfg)
+        m = n // 2
+        e_re, e_im = extend(*rec(offset, 2 * step, m, lvl - 1), m)
+        o_re, o_im = extend(*rec(offset + step, 2 * step, m, lvl - 1), m)
+        tw_re, tw_im = twiddles[n]
+        return (e_re + (tw_re * o_re - tw_im * o_im),
+                e_im + (tw_re * o_im + tw_im * o_re))
+
+    re, im = rec(0, 1, n_fft, levels)
+    return re * re + im * im
+
+
 def mel_power_plain(waves: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """(B, L) waves -> (B, T, n_mels) mel power: pad, frame, two fp32 GEMMs
     for the windowed rDFT (three bf16 passes each under
-    `cfg.dft_algorithm="bf16_x3"`), |.|^2, fp32 mel GEMM. The plain twin of
-    the CUDA kernel in ops/cuda_mfcc.py."""
+    `cfg.dft_algorithm="bf16_x3"`; `cfg.dft_split_levels` radix-2 stages
+    over smaller GEMMs where it is > 0), |.|^2, fp32 mel GEMM. The plain
+    twin of the CUDA kernel in ops/cuda_mfcc.py."""
     if waves.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
     n_frames = cfg.num_frames(waves.shape[-1])
     cr, ci, mel_t, _ = device_constants(cfg, waves.device)
+    ypad = center_pad(waves.float(), cfg)
+    if cfg.dft_split_levels > 0:
+        return rdft_power_split(ypad, n_frames, cfg) @ mel_t
+    frames = frame_signal(ypad, n_frames, cfg.n_fft, cfg.hop_length)
+    re = _dft_product(frames, cr, cfg)
+    im = _dft_product(frames, ci, cfg)
+    return (re * re + im * im) @ mel_t
+
+
+@functools.lru_cache(maxsize=16)
+def _window(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    """The Hann window centred in n_fft, fp32 on `device`."""
+    w = filters.pad_center(filters.hann_window(cfg.win_length), cfg.n_fft)
+    return torch.from_numpy(w.astype(np.float32)).to(device)
+
+
+def mfcc_fft_batch(waves: torch.Tensor, cfg: FrontendConfig,
+                   lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched MFCC with the spectrum from `torch.fft.rfft`: pad, frame,
+    window, rfft, |.|^2, fp32 mel GEMM, then the f64 finish; the contract of
+    `mfcc_torch_batch`. Plain PyTorch (cuFFT on the card): the JAX package's
+    `mfcc_fft_batch`."""
+    if waves.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
+    b, n_samples = waves.shape
+    n_frames = cfg.num_frames(n_samples)
+    _, _, mel_t, dct_t = device_constants(cfg, waves.device)
     frames = frame_signal(center_pad(waves.float(), cfg), n_frames,
                           cfg.n_fft, cfg.hop_length)
-    if cfg.dft_algorithm == "bf16_x3":
-        f_hi, f_lo = bf16x3_split(frames)
-        re = matmul_bf16x3(f_hi, f_lo, *bf16x3_split(cr))
-        im = matmul_bf16x3(f_hi, f_lo, *bf16x3_split(ci))
-    else:
-        re = frames @ cr
-        im = frames @ ci
-    return (re * re + im * im) @ mel_t
+    spec = torch.fft.rfft(frames * _window(cfg, waves.device), dim=-1)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    return finish_mfcc_from_mel(power @ mel_t, cfg, lengths, b, n_frames,
+                                dct_t)
 
 
 def mfcc_torch_batch(waves: torch.Tensor, cfg: FrontendConfig,

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `ops/spectral.py`:
 `spectral_norm_with_state` (one matrix, the per-layer norm constraint) and
-`product_spectral_norm_with_state`. The latter is also the plain twin of K2
+`product_spectral_norm_with_state`, with their stateless forms
+`spectral_norm` and `product_spectral_norm`. The latter is also the plain twin of K2
 (`ops/cuda_spectral.py`): with `matvec_dtype=torch.bfloat16` the kernels are
 rounded to bf16 once, the vector is rounded to bf16 before every link, and
 each matvec sums its bf16-exact products in fp32.
@@ -14,7 +15,8 @@ import contextlib
 
 import torch
 
-__all__ = ["spectral_norm_with_state", "product_spectral_norm_with_state",
+__all__ = ["spectral_norm", "spectral_norm_with_state",
+           "product_spectral_norm", "product_spectral_norm_with_state",
            "no_tf32"]
 
 _EPS = 1e-12
@@ -33,6 +35,13 @@ def no_tf32():
 
 def _l2_normalize(v: torch.Tensor) -> torch.Tensor:
     return v / (torch.sqrt(torch.sum(v * v)) + _EPS)
+
+
+def spectral_norm(w: torch.Tensor, n_iter: int = 32,
+                  u0: torch.Tensor | None = None) -> torch.Tensor:
+    """Largest singular value of a 2-D matrix by power iteration from `u0`
+    (None: the seeded start of `spectral_norm_with_state`); a 0-d tensor."""
+    return spectral_norm_with_state(w, u0, n_iter)[0]
 
 
 def spectral_norm_with_state(
@@ -70,6 +79,18 @@ def product_spectral_norm_with_state(
     """
     with no_tf32():
         return _power_iteration(ws, u, n_iter, eps, matvec_dtype)
+
+
+def product_spectral_norm(ws: list[torch.Tensor],
+                          n_iter: int = 64) -> torch.Tensor:
+    """sigma of W_m^T @ ... @ W_1^T from a cold start: a seeded normal draw
+    of shape (ws[-1].shape[1],) (the JAX package's start differs), n_iter
+    rounds of the stateful form; a 0-d tensor."""
+    d_out = ws[-1].shape[1]
+    gen = torch.Generator(device=ws[0].device).manual_seed(
+        d_out * 31 + len(ws))
+    u = torch.randn(d_out, generator=gen, device=ws[0].device)
+    return product_spectral_norm_with_state(ws, u, n_iter)[0]
 
 
 def _power_iteration(ws, u, n_iter, eps, matvec_dtype):

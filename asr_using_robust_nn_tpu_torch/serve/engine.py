@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `serve/engine.py`. The request path
 
-    waveform batch -> MFCC (K1 kernel on CUDA) -> standardize -> MLP -> probs
+    waveform batch -> MFCC (K1 kernel on CUDA by default) -> standardize
+                   -> MLP -> probs
 
 runs on the engine's device for one of a few padded batch sizes, so a
 request of any size reuses the shapes (and, on the card, the kernel's launch
@@ -75,13 +76,16 @@ class InferenceEngine:
         at cfg.sr; shorter inputs are masked exactly via per-row `lengths`,
         longer ones truncated.
       device: where the request path runs. None is the CUDA device (an
-        error where there is none); pass "cpu" for the CPU. On a CUDA device
-        the frontend's rDFT -> power -> mel chain is the K1 kernel.
+        error where there is none); pass "cpu" for the CPU.
+      backend: the frontend backend (`frontend/mfcc.py`); 'auto' resolves
+        from the device and the config by a table of H100 measurements: on
+        the card, for both presets, the K1 kernel ('cuda').
     """
 
     def __init__(self, model_cfg: MLPConfig, frontend_cfg: FrontendConfig,
                  params, state, scaler=None, buckets=_DEFAULT_BUCKETS,
-                 wave_width: int | None = None, device=None):
+                 wave_width: int | None = None, device=None,
+                 backend: str = "auto"):
         if list(buckets) != sorted(set(int(b) for b in buckets)) or \
                 min(buckets) < 1:
             raise ValueError(f"buckets must be ascending unique positive "
@@ -91,7 +95,7 @@ class InferenceEngine:
         self.buckets = tuple(int(b) for b in buckets)
         self.wave_width = int(wave_width or frontend_cfg.sr)
         self.device = resolve_device(device)
-        self._fe = Frontend(frontend_cfg, device=self.device)
+        self._fe = Frontend(frontend_cfg, backend=backend, device=self.device)
         self._params, self._state = params_from_numpy(params, state,
                                                       self.device)
         if scaler is not None:
@@ -114,7 +118,7 @@ class InferenceEngine:
         `artifacts_dir` (the `prepare-data` output the model was trained on)
         re-derives the fit-on-all scaler moments; pass standardize=False for
         a model trained on raw features. `kw` goes to the constructor
-        (buckets, wave_width, device)."""
+        (buckets, wave_width, device, backend)."""
         from ..data.pipeline import load_artifacts, standardize_fit_all
 
         model_cfg = {

@@ -4,10 +4,13 @@ Counterpart of the JAX package's `train/multi_run.py`. The thesis protocol
 is many runs (seed studies, constraint-strength sweeps); here R sets of
 (params, optimizer state, constraint state, generators) train on the same
 split, stacked on a leading runs axis. The JAX version vmaps the plain epoch
-over that axis and scans the fused epoch over it; the port loops over the
-runs in both backends (each run of the fused backend replays K3's CUDA graph
-with that run's state; the batched plain form is later work), so run r is
-exactly what a solo run of seed r computes.
+over that axis and scans the fused epoch over it. The port does the same
+with an explicit runs axis: the plain epoch computes all R runs at once
+(every Dense as one `torch.bmm` over stacked `(R, d_in, d_out)` kernels, BN
+moments, the loss and Adam per run, Adam's `count` of shape `(R,)`), and
+only the constraint's projection loops over the runs (K2 is a custom op
+with no batching rule: one launch per run a step). The fused backend loops
+over the runs, each a replay of K3's CUDA graph with that run's state.
 
 Two sweep axes compose, in any combination:
 
@@ -15,14 +18,19 @@ Two sweep axes compose, in any combination:
   each derived as `Trainer.fit` derives them for `TrainConfig(seed=s)`:
   init from `_generator(device, s, 0)`, the shuffle of an epoch from
   `_generator(device, s, 1, epoch or 0)`, its dropout from
-  `_generator(device, s, 2, epoch)`.
+  `_generator(device, s, 2, epoch)`. Each run draws its shuffle and its
+  dropout masks from its own generator in the order a solo fit draws them,
+  so on the CPU with one torch thread run r equals the solo run of seed r
+  bit for bit (a `torch.bmm` slice is then the `torch.mm` of the solo
+  program; with several threads, or on the card, the GEMMs may sum in
+  another order).
 - constraint strength rho: `constraint_factory` (a `constraints/engine.py`
   factory) plus one rho per run.
 
 Per-run early stopping and best-snapshot retention stay exact by freezing:
 once a run's patience is exhausted its state is carried over bit for bit
 (the `active` mask), so its trajectory, best snapshot and validation metrics
-are those of a run that stopped.
+are those of a run that stopped. A frozen run is not computed.
 """
 
 from __future__ import annotations
@@ -32,13 +40,15 @@ import torch
 
 from ..models.mlp import MLPConfig, init_mlp
 from ..utils.device import resolve_device
-from .epoch_scan import epoch_program, eval_program
-from .trainer import _generator, _tree_map, adam_optimizer
+from .epoch_scan import eval_program, shuffle_batches
+from .trainer import (_generator, _nonneg_clamp, _tree_leaves, _tree_map,
+                      adam_optimizer)
 
 __all__ = [
     "init_multi_run_state",
     "build_multi_run_epoch_fn",
     "build_multi_run_eval_fn",
+    "apply_mlp_runs",
     "init_multi_run_fused_state",
     "build_multi_run_fused_epoch_fn",
     "fold_runs",
@@ -142,6 +152,166 @@ def init_multi_run_state(model_cfg: MLPConfig, optimizer, seeds,
     return params, state, opt_state, cstate, kps, kds
 
 
+def _rows(v, t):
+    """A per-run (R,) vector shaped to broadcast against the stacked t."""
+    return v.reshape((-1,) + (1,) * (t.dim() - 1))
+
+
+def apply_mlp_runs(cfg: MLPConfig, params: dict, state: dict,
+                   x: torch.Tensor, train: bool = False, drop_gens=None,
+                   weights: torch.Tensor | None = None):
+    """`models/mlp.py::apply_mlp` over a leading runs axis -> (logits
+    (R, B, n_classes), new_state). `params`/`state` are stacked trees,
+    `x` is (R, B, d) or a shared (B, d), `weights` (R, B) row weights for
+    the BN batch moments. Every Dense is one `torch.bmm` over the runs;
+    `drop_gens` (one generator per run) draw each run's dropout masks in
+    the order a solo forward draws them."""
+    if x.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
+    n_runs = params["layers"][0]["w"].shape[0]
+    h = x if x.dim() == 3 else x.expand(n_runs, *x.shape)
+    n_hidden = len(cfg.hidden)
+    new_slayers = []
+    if weights is not None:
+        denom = (torch.sum(weights, 1) + 1e-9)[:, None]
+    for i, p in enumerate(params["layers"]):
+        if cfg.compute_dtype == "bfloat16":
+            h = torch.bmm(h.to(torch.bfloat16).float(),
+                          p["w"].to(torch.bfloat16).float()) + p["b"][:, None]
+        else:
+            h = torch.bmm(h, p["w"]) + p["b"][:, None]
+        if i == n_hidden:  # output layer: logits
+            new_slayers.append(dict(state["layers"][i]))
+            break
+        h = torch.relu(h)
+        s = state["layers"][i]
+        if cfg.batch_norm:
+            if train:
+                if weights is not None:
+                    mean = torch.sum(h * weights[:, :, None], 1) / denom
+                    var = torch.sum(((h - mean[:, None]) ** 2)
+                                    * weights[:, :, None], 1) / denom
+                else:
+                    mean = torch.mean(h, dim=1)
+                    var = torch.var(h, dim=1, unbiased=False)
+                m = cfg.bn_momentum
+                new_slayers.append({"mean": s["mean"] * m + mean * (1 - m),
+                                    "var": s["var"] * m + var * (1 - m)})
+            else:
+                mean, var = s["mean"], s["var"]
+                new_slayers.append(dict(s))
+            h = (h - mean[:, None]) * torch.rsqrt(var[:, None] + cfg.bn_eps)
+            h = h * p["gamma"][:, None] + p["beta"][:, None]
+        else:
+            new_slayers.append(dict(s))
+        rate = cfg.dropout[i] if i < len(cfg.dropout) else 0.0
+        if train and rate > 0.0 and drop_gens is not None:
+            keep = 1.0 - rate
+            mask = torch.stack([
+                torch.rand(h.shape[1:], generator=g, device=h.device)
+                for g in drop_gens]) < keep
+            h = torch.where(mask, h / keep, 0.0)
+    return h, {"layers": new_slayers}
+
+
+def _masked_loss_runs(model_cfg, params, state, x, y, w, drop_gens):
+    """Per-run row-weighted CCE and accuracy (R,): `epoch_scan.py`'s
+    `_masked_forward_loss` over the runs axis."""
+    logits, new_state = apply_mlp_runs(model_cfg, params, state, x,
+                                       train=True, drop_gens=drop_gens,
+                                       weights=w)
+    denom = torch.sum(w, 1) + 1e-9
+    logp = torch.log_softmax(logits, -1)
+    per = -torch.gather(logp, -1, y[..., None].long())[..., 0]
+    loss = torch.sum(per * w, 1) / denom
+    acc = torch.sum((torch.argmax(logits, -1) == y).float() * w, 1) / denom
+    return loss, new_state, acc
+
+
+def _adam_runs(opt, grads, state):
+    """`Adam.update` with a per-run `count` (R,): the bias corrections are
+    each run's own scalars, computed as a solo step computes its one."""
+    b1, b2 = opt.b1, opt.b2
+    mu = _tree_map(lambda m, g: (1 - b1) * g + b1 * m.float(),
+                   state["mu"], grads)
+    nu = _tree_map(lambda v, g: (1 - b2) * (g * g) + b2 * v.float(),
+                   state["nu"], grads)
+    count = state["count"] + 1
+    c = count.float()
+    bc1 = torch.stack([1 - b1 ** c[r] for r in range(c.shape[0])])
+    bc2 = torch.stack([1 - b2 ** c[r] for r in range(c.shape[0])])
+    updates = _tree_map(
+        lambda m, v: ((m / _rows(bc1, m))
+                      / (torch.sqrt(v / _rows(bc2, v)) + opt.eps))
+        * (-opt.lr), mu, nu)
+    cast = lambda t: t.to(opt.moments_dtype)  # noqa: E731
+    return updates, {"count": count, "mu": _tree_map(cast, mu),
+                     "nu": _tree_map(cast, nu)}
+
+
+def _epoch_runs(model_cfg, optimizer, constraints, batch_size, shuffle,
+                epochs_per_call, reshuffle_inner):
+    """-> `epoch(params, state, opt_state, cstate, data, labels, perm_gens,
+    drop_gens, n_true)` on stacked trees of the runs to train: the batched
+    form of `epoch_scan.py::epoch_program`. `constraints` holds one
+    projection per run (or None)."""
+
+    def step(params, state, opt_state, cstate, x, y, w, drop_gens):
+        p_req = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, state, acc = _masked_loss_runs(model_cfg, p_req, state, x,
+                                                 y, w, drop_gens)
+            leaves = _tree_leaves(p_req)
+            # the runs are independent, so the gradient of the sum is each
+            # run's own gradient, exactly
+            it = iter(torch.autograd.grad(loss.sum(), leaves))
+        grads = _tree_map(lambda _: next(it), p_req)
+        state = _tree_map(lambda t: t.detach(), state)
+        with torch.no_grad():
+            updates, opt_state = _adam_runs(optimizer, grads, opt_state)
+            params = _tree_map(lambda p, u: p + u, params, updates)
+            if model_cfg.nonneg:
+                params = _nonneg_clamp(params)
+            if constraints is not None:
+                # K2 has no batching rule: one projection per run
+                runs = [con(_run(params, r), _run(cstate, r))
+                        for r, con in enumerate(constraints)]
+                params = _stack([p for p, _ in runs])
+                cstate = _stack([c for _, c in runs])
+        return params, state, opt_state, cstate, loss.detach(), acc.detach()
+
+    def epoch(params, state, opt_state, cstate, data, labels, perm_gens,
+              drop_gens, n_true):
+        n_runs = opt_state["count"].shape[0]
+        batches = None
+        for _ in range(epochs_per_call):
+            if batches is None or reshuffle_inner:
+                per_run = [shuffle_batches(data, labels, batch_size, shuffle,
+                                           perm_gens[r], n_true)
+                           for r in range(n_runs)]
+                batches = [torch.stack(t, 1) for t in zip(*per_run)]
+            xs, ys, ws = batches
+            losses, accs = [], []
+            for i in range(xs.shape[0]):
+                params, state, opt_state, cstate, loss, acc = step(
+                    params, state, opt_state, cstate, xs[i], ys[i], ws[i],
+                    drop_gens)
+                losses.append(loss)
+                accs.append(acc)
+            ls, acs = torch.stack(losses, 1), torch.stack(accs, 1)
+            ns = torch.sum(ws, 2)  # (steps, R)
+            # each run's weighted means, summed as a solo epoch sums them
+            mean_loss = torch.stack([torch.sum(ls[r] * ns[:, r])
+                                     / torch.sum(ns[:, r])
+                                     for r in range(n_runs)])
+            mean_acc = torch.stack([torch.sum(acs[r] * ns[:, r])
+                                    / torch.sum(ns[:, r])
+                                    for r in range(n_runs)])
+        return params, state, opt_state, cstate, mean_loss, mean_acc
+
+    return epoch
+
+
 def build_multi_run_epoch_fn(
     model_cfg: MLPConfig,
     optimizer,
@@ -160,14 +330,15 @@ def build_multi_run_epoch_fn(
     (`fold_runs`; `drop_gens` None: no dropout) and `data`/`labels` are
     shared (padded to a multiple of batch_size).
 
-    `active` is an optional bool [R] mask: an inactive run is not trained,
-    its state is carried over bit for bit and its loss and accuracy read
-    NaN. `rhos` is a float [R] vector consumed by `constraint_factory` (None
-    with a fixed `constraint`); only one of `constraint` /
-    `constraint_factory` may be given. Returns stacked (params, state,
-    opt_state, cstate, mean_loss[R], mean_acc[R]); the inputs are not
-    modified. The runs are a loop over `train/epoch_scan.py::epoch_program`,
-    so run r equals the solo epoch of its seed and rho exactly."""
+    `active` is an optional bool [R] mask: an inactive run is not trained
+    (nor computed), its state is carried over bit for bit and its loss and
+    accuracy read NaN. `rhos` is a float [R] vector consumed by
+    `constraint_factory` (None with a fixed `constraint`); only one of
+    `constraint` / `constraint_factory` may be given. Returns stacked
+    (params, state, opt_state, cstate, mean_loss[R], mean_acc[R]); the
+    inputs are not modified. The active runs train as one batched program
+    (`apply_mlp_runs`: a `torch.bmm` per Dense), the constraint's
+    projection once per run."""
     if constraint is not None and constraint_factory is not None:
         raise ValueError("pass either constraint or constraint_factory")
     _no_mesh(mesh)
@@ -176,23 +347,29 @@ def build_multi_run_epoch_fn(
            drop_gens, active, rhos, n_true):
         trees = (params, state, opt_state, cstate)
         n_runs = opt_state["count"].shape[0]
+        idx = [r for r in range(n_runs)
+               if active is None or bool(active[r])]
         out = _tree_map(lambda t: t.clone(), trees)
-        nan = torch.full((), float("nan"), device=data.device)
-        losses, accs = [nan] * n_runs, [nan] * n_runs
-        for r in range(n_runs):
-            if active is not None and not bool(active[r]):
-                continue
-            con = (constraint_factory(float(rhos[r])).apply
-                   if constraint_factory is not None else constraint)
-            epoch = epoch_program(
-                model_cfg, optimizer, con, batch_size=batch_size,
-                shuffle=shuffle, epochs_per_call=epochs_per_call,
-                reshuffle_inner=reshuffle_inner)
-            *new, losses[r], accs[r] = epoch(
-                *_run(trees, r), data, labels, perm_gens[r],
-                None if drop_gens is None else drop_gens[r], n_true)
-            _tree_map(lambda dst, src: dst[r].copy_(src), out, tuple(new))
-        return (*out, torch.stack(losses), torch.stack(accs))
+        loss = torch.full((n_runs,), float("nan"), device=data.device)
+        acc = loss.clone()
+        if not idx:
+            return (*out, loss, acc)
+        if constraint_factory is not None:
+            cons = [constraint_factory(float(rhos[r])).apply for r in idx]
+        else:
+            cons = None if constraint is None else [constraint] * len(idx)
+        sel = torch.as_tensor(idx, device=data.device)
+        sub = _tree_map(lambda t: t.index_select(0, sel), trees)
+        epoch = _epoch_runs(model_cfg, optimizer, cons, batch_size, shuffle,
+                            epochs_per_call, reshuffle_inner)
+        *new, l_sub, a_sub = epoch(
+            *sub, data, labels, [perm_gens[r] for r in idx],
+            None if drop_gens is None else [drop_gens[r] for r in idx],
+            n_true)
+        _tree_map(lambda dst, src: dst.index_copy_(0, sel, src), out,
+                  tuple(new))
+        loss[sel], acc[sel] = l_sub, a_sub
+        return (*out, loss, acc)
 
     return fn
 
@@ -200,16 +377,28 @@ def build_multi_run_epoch_fn(
 def build_multi_run_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024,
                             mesh=None):
     """-> `evaluate(params, state, data, labels, n_true)` with params/state
-    stacked on a runs axis -> (val_loss[R], val_acc[R])."""
+    stacked on a runs axis -> (val_loss[R], val_acc[R]): every run's
+    forward on each shared batch as one batched program."""
     _no_mesh(mesh)
-    evaluate = eval_program(model_cfg, batch_size=batch_size)
 
+    @torch.no_grad()
     def fn(params, state, data, labels, n_true):
         n_runs = params["layers"][0]["w"].shape[0]
-        outs = [evaluate(_run(params, r), _run(state, r), data, labels,
-                         n_true) for r in range(n_runs)]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        n_pad = data.shape[0]
+        loss_sum = torch.zeros((n_runs,), device=data.device)
+        hit_sum = torch.zeros((n_runs,), device=data.device)
+        for i in range(0, n_pad, batch_size):
+            x, y = data[i: i + batch_size], labels[i: i + batch_size]
+            w = (torch.arange(i, i + x.shape[0], device=data.device)
+                 < n_true).float()
+            logits, _ = apply_mlp_runs(model_cfg, params, state, x)
+            logp = torch.log_softmax(logits, -1)
+            per = -torch.gather(
+                logp, -1, y[None, :, None].long().expand(n_runs, -1, 1))[..., 0]
+            loss_sum = loss_sum + torch.sum(per * w, 1)
+            hit_sum = hit_sum + torch.sum(
+                (torch.argmax(logits, -1) == y).float() * w, 1)
+        return loss_sum / n_true, hit_sum / n_true
 
     return fn
 
@@ -260,10 +449,11 @@ def fit_multi_run(
 
     `epoch_backend="fused"` trains each chunk through the fused epoch (K3 on
     a card, its twin on the CPU; `build_multi_run_fused_epoch_fn`): either no
-    constraint or the full simple_norm at a fixed rho. The default is
-    "plain" (`train/epoch_scan.py`, autograd): dropout draws differ between
-    the backends, so a seed study must not switch engines between merged
-    invocations.
+    constraint or the full simple_norm at a fixed rho; it evaluates each run
+    as a solo fit does. The default is "plain" (autograd: the active runs'
+    epoch and the evaluation as one batched program, `apply_mlp_runs`):
+    dropout draws differ between the backends, so a seed study must not
+    switch engines between merged invocations.
 
     Returns a dict of stacked results, runs axis leading: params, state,
     opt_state, constraint_state (device tensors), best_params / best_state /
@@ -375,7 +565,18 @@ def fit_multi_run(
 
     epoch_fns = {cfg.epochs_per_dispatch: make_epoch_fn(
         cfg.epochs_per_dispatch)}
-    eval_fn = build_multi_run_eval_fn(model_cfg, batch_size=vb)
+    if use_fused:
+        # the fused backend is a loop of solo programs, its evaluation too:
+        # run r stays bit-equal to a solo fit on the card, where a batched
+        # GEMM may sum in another order than a single one
+        solo_eval = eval_program(model_cfg, batch_size=vb)
+
+        def eval_fn(params, state, data, labels, n_true):
+            outs = [solo_eval(_run(params, r), _run(state, r), data, labels,
+                              n_true) for r in range(n_runs)]
+            return tuple(torch.stack(o) for o in zip(*outs))
+    else:
+        eval_fn = build_multi_run_eval_fn(model_cfg, batch_size=vb)
 
     best_val = np.full((n_runs,), np.inf, np.float64)
     best = None  # the stacked snapshot on the device, per run

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and data-preparation paths once
-on an NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, data-preparation, attack and
+frontend paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -122,7 +122,24 @@ which raises on failure (the exit code is then non-zero):
            checkpoint, the card against the CPU (pgd: 99 % of coordinates
            within 1e-4; jsma and C&W: success masks on 95 %, perturbation
            norms within 2 %, accuracy within 2/n) with iterations a second;
-           `dolphin` on a prepare-phase WAV (192 kHz, peak 1);
+           pgd on the unconstrained checkpoint in lockstep (both gradients
+           at the CPU's iterate for 100 steps): no gradient sign flip in a
+           row whose ReLU inputs are all clear of 0; `dolphin` on a
+           prepare-phase WAV (192 kHz, peak 1);
+  train_multi `train-multi` through `cli.main` on steady-tone features made
+           with K1 (16 384 / 2 048 / 2 048 rows): 4 seeds of
+           digit_constrained on the plain backend (the runs as one batched
+           program, K2 once a run a step) and on the fused one (K3 a run an
+           epoch), each seed's test accuracy, every run's store through
+           `evaluate`, fused run r against its solo K3 fit; then on the
+           train phase's full split the batched plain epoch against the
+           loop of solo plain epochs after one epoch, both timed;
+  profile  `profile` through `cli.main`: trace.json names K1's and K2's
+           kernels, K2 launches once a step, K1 twice;
+  frontend_alt every `Frontend` backend at both presets: against the f64
+           oracle on noise rows at its scheme's bar, against the goldens
+           (K1 and what `auto` resolves to held to 5e-4), timed at 1024
+           rows: the table behind `auto`;
   timing   K1 against its plain twin at the 1024-row buckets (CUDA events),
            the engine's warm p50/p95 per bucket and ingress dtype, and
            beside each the request's host-to-device copy and K1 timed alone;
@@ -2470,6 +2487,63 @@ def wb_agreement(got, want, x, y, logits_fn, norm):
             "success": float(s_got.mean())}
 
 
+def relu_inputs(cfg, tree, device):
+    """-> fn(x) giving the ReLU inputs z of every hidden layer of a model in
+    eval mode (the forward of `models/mlp.py::apply_mlp`), on `device`."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
+
+    params, state = params_from_numpy(*tree, device)
+
+    @torch.no_grad()
+    def fn(x):
+        zs, h = [], x
+        for i, (p, s) in enumerate(zip(params["layers"], state["layers"])):
+            h = h @ p["w"] + p["b"]
+            if i == len(cfg.hidden):
+                break
+            zs.append(h)
+            h = torch.relu(h)
+            if cfg.batch_norm:
+                h = (h - s["mean"]) * torch.rsqrt(s["var"] + cfg.bn_eps)
+                h = h * p["gamma"] + p["beta"]
+        return zs
+
+    return fn
+
+
+def grad_rounding_scale(cfg, tree):
+    """-> fn(x, y) giving, on the CPU, sum_k |W1[j, k]| |d_k| for every
+    input coordinate j, d = dCE/dz1 at the first layer's pre-activations: the
+    scale of the rounding of the input gradient g_j = sum_k W1[j, k] d_k."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.attacks import whitebox as wb
+    from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
+    from asr_using_robust_nn_tpu_torch.models.mlp import apply_mlp
+
+    params, state = params_from_numpy(*tree, torch.device("cpu"))
+    first, rest = params["layers"][0], dict(params, layers=params["layers"][1:])
+
+    sub = dataclasses.replace(cfg, in_dim=cfg.hidden[0],
+                              hidden=cfg.hidden[1:], dropout=cfg.dropout[1:])
+    s0, s_rest = state["layers"][0], dict(state, layers=state["layers"][1:])
+
+    def fn(x, y):
+        with torch.enable_grad():
+            z1 = (x @ first["w"] + first["b"]).detach().requires_grad_(True)
+            h = torch.relu(z1)
+            if cfg.batch_norm:
+                h = (h - s0["mean"]) * torch.rsqrt(s0["var"] + cfg.bn_eps)
+                h = h * first["gamma"] + first["beta"]
+            logits, _ = apply_mlp(sub, rest, s_rest, h, train=False)
+            (d,) = torch.autograd.grad(wb._ce(logits, y), z1)
+        return d.abs() @ first["w"].abs().T
+
+    return fn
+
+
 def attack_phase(dev, prep, root, card=None, synth_rows=2370, wb_rows=64,
                  jsma_iter=16):
     """The attack slice on the cli phase's digit checkpoints (ck_c on K3,
@@ -2759,32 +2833,81 @@ def attack_phase(dev, prep, root, card=None, synth_rows=2370, wb_rows=64,
               f"; {wbo[name][f'{dev.type}_s']:.3f} s on {dev.type} "
               f"({wbo[name]['iters_per_s']:.1f} iterations/s), "
               f"{wbo[name]['cpu_s']:.3f} s on the CPU ({card})", flush=True)
-    # a reading, not a bar: pgd on the unconstrained model, free-running on
-    # both sides, then in lockstep (both gradients at the CPU's iterate),
-    # which shows where the trajectories part: sign flips of whole rows'
-    # gradients at steps where a ReLU input of the row sits within rounding
-    # of 0 and the two sides take different branches
+    # pgd on the unconstrained model. Free-running, the two sides part where
+    # a ReLU input sits within rounding of 0 and they take different
+    # branches (printed, no bar). The bar runs the loop in lockstep, both
+    # gradients at the CPU's iterate, and counts sign disagreements only in
+    # rows whose ReLU inputs are all clear of 0: no |z| <= 8 eps_fp32 times
+    # the row's largest |z| in that layer (8 ulps of the row's scale), and
+    # no z whose sign differs between the card and the CPU (such a z is
+    # within rounding of 0 by what this run measured); and, in those rows,
+    # only at coordinates whose gradient is not itself within rounding of 0:
+    # g_j = sum_k W1[j, k] d_k over the first layer's K = 1024 units, whose
+    # fp32 sum in any order is within K eps_fp32 sum_k |W1[j, k] d_k| of the
+    # exact one (Higham's gamma_K), twice that for d's own rounding. Bar:
+    # zero such flips over the 100 steps.
     x, y = torch.from_numpy(te), torch.from_numpy(ty)
     free = wb.pgd(lf["u", dev.type], x.to(dev), y.to(dev), 1.0).cpu()
     close_u = float(torch.mean((torch.abs(
         free - wb.pgd(lf["u", "cpu"], x, y, 1.0)) <= 1e-4).float()))
+    eps32 = float(torch.finfo(torch.float32).eps)
+    near_factor = 8 * eps32
+    coord_factor = 2 * cfg_u.hidden[0] * eps32
+    zc_fn, zg_fn = (relu_inputs(cfg_u, tree_u, dv) for dv in (cpu, dev))
+    scale_fn = grad_rounding_scale(cfg_u, tree_u)
     xa, flips, worst = x.clone(), [], 0.0
+    kink_rows = branch_rows = clear_flips = counted = 0
+    clear_seen = []
     for step in range(100):
         gc = wb._grad_ce(lf["u", "cpu"], xa, y)
         gg = wb._grad_ce(lf["u", dev.type], xa.to(dev), y.to(dev)).cpu()
-        scale = gc.abs().amax(1, keepdim=True)
-        n_flip = int((torch.sign(gc) != torch.sign(gg)).sum())
+        zc = zc_fn(xa)
+        zg = [z.cpu() for z in zg_fn(xa.to(dev))]
+        near = torch.zeros(len(xa), dtype=torch.bool)
+        branch = torch.zeros(len(xa), dtype=torch.bool)
+        for a, g in zip(zc, zg):
+            scale = a.abs().amax(1, keepdim=True)
+            near |= (a.abs() <= near_factor * scale).any(1)
+            branch |= ((a > 0) != (g > 0)).any(1)
+        flip = torch.sign(gc) != torch.sign(gg)
+        n_flip = int(flip.sum())
+        kink_rows += int(near.sum())
+        branch_rows += int((branch & ~near).sum())
+        clear = flip & ~(near | branch)[:, None]
+        clear_flips += int(clear.sum())
+        if clear.any():
+            rnd = scale_fn(xa, y)
+            tiny = gc.abs() <= coord_factor * rnd
+            counted += int((clear & ~tiny).sum())
+            for i, j in clear.nonzero().tolist():
+                clear_seen.append((step, float(gc[i, j].abs() / rnd[i, j]),
+                                   float(gc[i, j].abs()
+                                         / gc[i].abs().max())))
         if n_flip:
+            scale = gc.abs().amax(1, keepdim=True)
             flips.append((step, n_flip))
             worst = max(worst, float(((gg - gc).abs() / scale).max()))
         xa = x + torch.clamp(xa + 0.1 * torch.sign(gc) - x, -1.0, 1.0)
-    wbo["pgd_unconstrained_reading"] = {"close": close_u, "flips": flips,
-                                        "worst_grad_rel": worst}
-    print(f"attack pgd on ck_u (a reading, not a bar): {close_u:.4f} of "
-          f"coordinates within 1e-4 free-running; in lockstep, sign flips "
-          f"(step, coordinates) {flips}, the largest |g_card - g_cpu| at a "
-          f"flip step {worst:.3e} of the row's largest |g| ({card})",
-          flush=True)
+    wbo["pgd_unconstrained"] = {
+        "close": close_u, "flips": flips, "worst_grad_rel": worst,
+        "near_factor": near_factor, "coord_factor": coord_factor,
+        "rows_near_a_kink": kink_rows,
+        "rows_with_a_branch_split_only": branch_rows,
+        "flips_in_clear_rows": clear_flips,
+        "clear_row_flips_step_g_over_rounding_g_over_row_max": clear_seen,
+        "flips_counted": counted}
+    print(f"attack pgd on ck_u: free-running {close_u:.4f} of coordinates "
+          f"within 1e-4 (no bar); lockstep, 100 steps x {len(xa)} rows: "
+          f"sign flips (step, coordinates) {flips}, largest |g_card - g_cpu| "
+          f"at a flip step {worst:.3e} of the row's largest |g|; row-steps "
+          f"with a ReLU input within {near_factor:.3e} x the layer's row "
+          f"scale {kink_rows}, with a branch split only {branch_rows}; flips "
+          f"in clear rows {clear_flips}, as (step, |g| / its rounding scale, "
+          f"|g| / the row's largest) {clear_seen}; flips counted (|g| over "
+          f"{coord_factor:.3e} x its rounding scale) {counted} (bar 0) "
+          f"({card})", flush=True)
+    check(counted == 0, f"pgd on ck_u: {counted} gradient sign flips card vs "
+          f"CPU at coordinates clear of rounding in rows clear of ReLU kinks")
     out["whitebox"] = wbo
 
     # ---- (e) dolphin on a prepare-phase WAV ------------------------------------
@@ -2812,6 +2935,396 @@ def attack_phase(dev, prep, root, card=None, synth_rows=2370, wb_rows=64,
           f"{out['phase_s']:.1f} s; CLI seconds by type {out['walls_s']} "
           f"({card})", flush=True)
     return out
+
+
+# -- train-multi, profile and frontend-alternates phases -------------------------
+
+def steady_tone_waves(labels, seed, device, width=22050, sr=22050):
+    """Seeded steady tones made on `device`: class c is a tone at
+    300 * 1.25**c Hz (+-2 %) with its second and third harmonics at random
+    weights, random loudness within 6 dB, in low noise, over the whole
+    second."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = len(labels)
+    lab = torch.as_tensor(labels, device=device).float()[:, None]
+
+    def uni(lo, hi, shape=(n, 1)):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=device)
+
+    t = torch.arange(width, device=device)[None, :] / float(sr)
+    f0 = 300.0 * 1.25 ** lab * uni(0.98, 1.02)
+    k = torch.arange(1, 4, device=device).float()[None, :, None]
+    weight = torch.cat([torch.ones((n, 1), device=device),
+                        uni(0.0, 0.5, (n, 2))], 1)[:, :, None]
+    phase = 2 * np.pi * f0[:, :, None] * k * t[:, None, :] \
+        + uni(0, 6.3, (n, 3))[:, :, None]
+    tone = (weight * torch.sin(phase)).sum(1)
+    noise = uni(1e-3, 5e-3) * torch.randn((n, width), generator=g,
+                                          device=device)
+    return uni(0.2, 0.4) * tone + noise
+
+
+def write_artifacts(out, splits):
+    """The six .npy files of `prepare-data` from {"train", "dev", "test":
+    (features, labels)}: float64 features, int32 labels."""
+    os.makedirs(out)
+    for name, (x, y) in splits.items():
+        np.save(os.path.join(out, f"{name}_data.npy"), x.astype(np.float64))
+        np.save(os.path.join(out, f"{name}_label.npy"), y.astype(np.int32))
+    return out
+
+
+def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
+                      sizes=(8192, 2048, 2048), epochs=48, per_dispatch=8,
+                      hold_epochs=4, batch=512, reps=1):
+    """`train-multi` through the CLI. (a) On steady-tone features made with
+    K1: R = len(seeds) runs of digit_constrained (simple_norm rho 0.1) on the
+    plain backend (the batched program; K2 once per run a step) and on the
+    fused one (K3 a run an epoch), each seed's test accuracy, every store
+    through `evaluate`, and K3's parity check against the plain epoch on
+    these features (a reading). (b) On the train phase's split (voiced
+    bursts): the fused backend's run r against its solo K3 `Trainer.fit`.
+    (c) There, the batched plain epoch against the loop of solo plain
+    epochs after one epoch (bars below), both timed."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        load_artifacts, standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.frontend.mfcc import Frontend
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig, init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+    from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
+    from asr_using_robust_nn_tpu_torch.train import multi_run as mr
+    from asr_using_robust_nn_tpu_torch.train.checkpoints import (
+        CheckpointManager)
+    from asr_using_robust_nn_tpu_torch.train.epoch_scan import epoch_program
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, _tree_leaves, adam_optimizer)
+
+    card = card or card_line()
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out, walls = {}, {}
+    cfg = MLPConfig.digit_constrained()
+    con = make_simple_norm_constraint(0.1)  # train-multi's constraint
+    seed_arg = ",".join(str(s) for s in seeds)
+
+    def train_multi(name, art, ck, backend, n_epochs, *extra):
+        argv = ["train-multi", "--task", "digit", "--variant", "constrained",
+                "--constraint", "simple", "--data", art, "--ckpt", ck,
+                "--seeds", seed_arg, "--epochs", str(n_epochs),
+                "--epochs-per-dispatch", str(min(per_dispatch, n_epochs)),
+                "--batch-size", str(batch), "--epoch-backend", backend,
+                *extra]
+        product_spectral_norm_cuda.launches = 0  # this main path starts here
+        ct.build_fused_epoch_call.launches = 0
+        text, _ = run_cli(dev, name, argv, card, walls)
+        launches = (product_spectral_norm_cuda.launches,
+                    ct.build_fused_epoch_call.launches)  # ... and ends here
+        return last_json(text), launches
+
+    # (a) steady-tone artifacts, featurized by K1 in chunks of 1024
+    fe = Frontend(FrontendConfig.digit(), backend="cuda", device=dev)
+    rng = np.random.default_rng(SEED + 90)
+    tones = {}
+    for k, (name, n) in enumerate(zip(("train", "dev", "test"), sizes)):
+        lab = rng.integers(0, 10, n)
+        tones[name] = (np.concatenate([
+            fe.flat(steady_tone_waves(lab[i: i + 1024],
+                                      SEED + 900 + 100 * k + i, dev))
+            .cpu().numpy() for i in range(0, n, 1024)]), lab)
+    art = write_artifacts(os.path.join(root, "tones"), tones)
+    steps = -(-sizes[0] // batch)
+    for backend in ("plain", "fused"):
+        line, (k2, k3) = train_multi(f"train_multi_{backend}", art,
+                                     os.path.join(root, f"tm_{backend}"),
+                                     backend, epochs)
+        accs = [r["test_accuracy"] for r in line["runs"]]
+        # K2 runs once a run a step on the plain backend, through its
+        # wrapper; on the fused one it is a node of K3's graph, a step
+        want = ((len(seeds) * steps * epochs, 0) if backend == "plain"
+                else (0, len(seeds) * epochs))
+        print(f"train-multi {backend} (steady tones): {len(seeds)} seeds x "
+              f"{epochs} epochs of {steps} steps in "
+              f"{walls[f'train_multi_{backend}']:.2f} s; test accuracy by "
+              f"seed {[round(a, 4) for a in accs]}; K2 wrapper launches {k2}, "
+              f"K3 replays {k3}" + (f" (K2 in K3's graph {k3 * steps})"
+                                    if backend == "fused" else "")
+              + f" ({card})", flush=True)
+        if on_card:
+            check((k2, k3) == want, f"train-multi {backend}: K2 {k2}, K3 {k3}"
+                  f" launches, want {want}")
+        check(line["n_runs"] == len(seeds)
+              and line["fused_dispatches"] == -(-epochs // per_dispatch)
+              and all(r["epochs_run"] == epochs for r in line["runs"]),
+              f"train-multi {backend}: {line}")
+        # above chance (0.1) by 5 standard errors of an n-row test
+        above = 0.1 + 5 * (0.1 * 0.9 / sizes[2]) ** 0.5
+        check(min(accs) > above, f"train-multi {backend}: test accuracy "
+              f"{accs} on steady tones (bar: each run > {above:.4f}, chance "
+              f"0.1 + 5 standard errors)")
+        for r in line["runs"]:
+            ev, _ = run_cli(dev, f"evaluate_{backend}_{r['seed']}",
+                            ["evaluate", "--task", "digit", "--variant",
+                             "constrained", "--data", art, "--ckpt",
+                             r["ckpt"]], card, walls)
+            got = last_json(ev)["test_accuracy"]
+            check(abs(got - r["test_accuracy"]) <= 1e-6, f"evaluate of "
+                  f"{r['ckpt']}: {got} vs train-multi's {r['test_accuracy']}")
+        out[backend] = {"wall_s": walls[f"train_multi_{backend}"],
+                        "test_accuracy": accs, "k2_launches": k2,
+                        "k3_launches": k3}
+    d = load_artifacts(art)
+    tr = standardize_fit_all(d.train_data, d.dev_data, d.test_data)[0]
+    d_tr, n_true = pad_to_multiple(tr.astype(np.float32), batch)
+    l_tr, _ = pad_to_multiple(d.train_label.astype(np.int64), batch)
+    gate = ct.epoch_parity_vs_plain(cfg, batch, torch.from_numpy(d_tr).to(
+        dev), torch.from_numpy(l_tr).to(dev), n_true)
+    print(f"train-multi: K3's parity check against the plain epoch on the "
+          f"steady-tone features (a reading; Trainer.fit refuses K3 where it "
+          f"fails): {gate} ({card})", flush=True)
+    out["k3_parity_on_tones"] = gate
+
+    # (b) fused run r against its solo K3 fit, on the train phase's split
+    (tr_x, tr_y), (va_x, va_y) = split["train"], split["val"]
+    art_b = write_artifacts(os.path.join(root, "bursts"), {
+        "train": split["train"], "dev": split["val"], "test": split["test"]})
+    line, _ = train_multi("train_multi_fused_bursts", art_b,
+                          os.path.join(root, "tm_bursts"), "fused",
+                          hold_epochs, "--no-standardize")
+    tcfg = TrainConfig(batch_size=batch, epochs=hold_epochs, patience=6000,
+                       device_resident=True,
+                       epochs_per_dispatch=min(per_dispatch, hold_epochs),
+                       epoch_backend="fused")
+    p0, _ = init_mlp(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+
+    def solo(seed):
+        t = Trainer(cfg, dataclasses.replace(tcfg, seed=seed),
+                    constraint=con.apply, constraint_state=con.init(p0),
+                    device=dev)
+        return t.fit(tr_x, tr_y, va_x, va_y)
+
+    refs = [solo(s) for s in seeds]
+    again = solo(seeds[0])
+    repro = all(torch.equal(a, b) for a, b in zip(
+        _tree_leaves(refs[0]["best_params"]),
+        _tree_leaves(again["best_params"])))
+    bar = 0.0 if repro else ct.parity_bars(
+        hold_epochs * -(-len(tr_x) // batch))["param"]
+    gaps = []
+    for r, ref in zip(line["runs"], refs):
+        tree, _ = CheckpointManager(r["ckpt"]).load_best()
+        gaps.append(max(float(np.abs(np.asarray(a) - b.numpy()).max())
+                        for a, b in zip(_tree_leaves(tree["params"]),
+                                        _tree_leaves(ref["best_params"]))))
+    print(f"train-multi fused (voiced bursts, {hold_epochs} epochs) vs solo "
+          f"K3 fits: worst best-parameter gap by run {gaps} (bar {bar}: two "
+          f"solo fits bit-equal {'yes' if repro else 'no'}); test accuracy "
+          f"{[round(r['test_accuracy'], 4) for r in line['runs']]}",
+          flush=True)
+    check(all(g <= bar for g in gaps), "a fused train-multi run differs from "
+          "its solo K3 fit")
+    out["fused_vs_solo"] = {"gaps": gaps, "bar": bar,
+                            "bit_reproducible": repro}
+
+    # (c) the batched plain epoch against the loop of solo plain epochs, one
+    # full-split epoch (33 steps of 512) at the recipe's dropout: the same
+    # draws, so only the GEMMs' summation order differs (batched against
+    # single cuBLAS calls). Bars: the parameter difference at most 1e-3 of
+    # the epoch's own update (Frobenius, all leaves; an Adam step whose
+    # gradient sits within rounding of 0 may flip, moving one entry by
+    # 2 lr), each run's loss within 1e-4 and accuracy within 1e-3
+    d_tr, n_true = pad_to_multiple(tr_x, batch)
+    l_tr, _ = pad_to_multiple(tr_y, batch)
+    data = torch.from_numpy(d_tr).to(dev)
+    lab = torch.from_numpy(l_tr).to(dev)
+    opt = adam_optimizer()
+    st = mr.init_multi_run_state(cfg, opt, list(seeds), con.init, device=dev)
+    batched = mr.build_multi_run_epoch_fn(cfg, opt, con.apply,
+                                          batch_size=batch)
+    solo_epoch = epoch_program(cfg, opt, con.apply, batch_size=batch)
+
+    def run_batched():
+        return batched(*st[:4], data, lab, mr.fold_runs(st[4], 0, dev),
+                       mr.fold_runs(st[5], 0, dev), None, None, n_true)
+
+    def run_loop():
+        pg, dg = mr.fold_runs(st[4], 0, dev), mr.fold_runs(st[5], 0, dev)
+        return [solo_epoch(*mr._run(tuple(st[:4]), r), data, lab, pg[r],
+                           dg[r], n_true) for r in range(len(seeds))]
+
+    got, want = run_batched(), run_loop()
+    diff = upd = 0.0
+    loss_gap = acc_gap = 0.0
+    for r, w in enumerate(want):
+        for a, b, c in zip(_tree_leaves(mr._run(got[0], r)),
+                           _tree_leaves(w[0]),
+                           _tree_leaves(mr._run(st[0], r))):
+            diff += float(((a - b) ** 2).sum())
+            upd += float(((b - c) ** 2).sum())
+        loss_gap = max(loss_gap, abs(float(got[4][r]) - float(w[4])))
+        acc_gap = max(acc_gap, abs(float(got[5][r]) - float(w[5])))
+    rel = (diff / upd) ** 0.5
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run_batched()
+    sync()
+    b_ms = (time.perf_counter() - t0) / reps / len(seeds) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run_loop()
+    sync()
+    l_ms = (time.perf_counter() - t0) / reps / len(seeds) * 1e3
+    print(f"multi-run plain, {len(seeds)} runs, one epoch of "
+          f"{-(-len(tr_x) // batch)} steps: batched vs loop parameters "
+          f"{rel:.3e} of the epoch's update (bar 1e-3), loss {loss_gap:.2e} "
+          f"(bar 1e-4), accuracy {acc_gap:.2e} (bar 1e-3); ms per run per "
+          f"epoch: batched {b_ms:.1f}, loop {l_ms:.1f} ({card})", flush=True)
+    check(rel <= 1e-3 and loss_gap <= 1e-4 and acc_gap <= 1e-3,
+          "the batched plain epoch disagrees with the loop of solo epochs")
+    out["batched_vs_loop"] = {"param_rel": rel, "loss_gap": loss_gap,
+                              "acc_gap": acc_gap, "batched_ms_per_run_epoch":
+                              b_ms, "loop_ms_per_run_epoch": l_ms}
+    out["walls_s"] = {k: round(v, 3) for k, v in walls.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def profile_phase(dev, root, steps=5, card=None):
+    """`profile` through the CLI: the trace file exists and names K1's and
+    K2's kernels; K2 launches once a step (warm-up included), K1 twice (the
+    warm-up call and the traced one)."""
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+
+    card = card or card_line()
+    walls = {}
+    out_dir = os.path.join(root, "profile")
+    mel_power_cuda.launches = 0  # the profile path starts here
+    product_spectral_norm_cuda.launches = 0
+    text, _ = run_cli(dev, "profile", ["profile", "--task", "digit",
+                                       "--variant", "constrained", "--out",
+                                       out_dir, "--steps", str(steps)],
+                      card, walls)
+    k1, k2 = mel_power_cuda.launches, product_spectral_norm_cuda.launches
+    line = last_json(text)
+    with open(os.path.join(out_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: any(k in n for n in kernels)
+             for k in ("fft_power_mel_kernel", "pi_cluster_kernel")}
+    print(f"profile: {steps} steps, final loss {line['final_loss']:.4f}, "
+          f"{walls['profile']:.2f} s; trace.json {len(events)} events, "
+          f"{len(kernels)} kernel names; K1 (fft_power_mel_kernel) and K2 "
+          f"(pi_cluster_kernel) named: {named}; launches K1 {k1}, K2 {k2} "
+          f"({card})", flush=True)
+    check(line["steps"] == steps and np.isfinite(line["final_loss"]),
+          f"profile: {line}")
+    if dev.type == "cuda":
+        check(all(named.values()), f"profile trace lacks a kernel: {named}")
+        check((k1, k2) == (2, steps + 1), f"profile launches K1 {k1}, "
+              f"K2 {k2}, want 2 and {steps + 1}")
+    return {"wall_s": walls["profile"], "k1_launches": k1,
+            "k2_launches": k2, "trace_events": len(events),
+            "kernels_named": named}
+
+
+FRONTEND_BARS = {  # the scheme's bar against the oracle on noise rows
+    "cuda": (5e-4, 0.0), "plain": (1e-3, 1e-4), "fft": (1e-3, 1e-4),
+    "hopdft": (1e-3, 1e-4), "int8": (1e-3, 1e-4), "hopdft_int8": (1e-3, 1e-4),
+    "cuda_int8": (1e-3, 1e-4), "cuda_bf16x3": (8e-3, 1e-3)}
+
+
+def frontend_alt_phase(dev, batch=1024, reps=3, card=None):
+    """Every `Frontend` backend at both presets on the card: its MFCC
+    against the f64 oracle on four noise rows of spread amplitude (the bar
+    of its scheme, `FRONTEND_BARS`: atol, rtol) and against
+    tests/golden_mfcc.npz (read, and K1 held to 5e-4), and its whole call
+    at `batch` one-second rows on the card by CUDA events. The table is
+    `frontend/mfcc.py`'s H100_TABLE; `auto` must resolve to a backend that
+    held 5e-4 on the goldens in this run."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.frontend.mfcc import (
+        GOLDEN_BAR, Frontend, auto_backend)
+    from asr_using_robust_nn_tpu_torch.ops import frontend_ref
+    from asr_using_robust_nn_tpu_torch.ops.mfcc_torch import FrontendConfig
+
+    card = card or card_line()
+    gold = np.load(os.path.join(REPO, "tests", "golden_mfcc.npz"))
+    names = ["chirp", "tone_noise", "impulses"]
+    gw = np.stack([gold[f"in_{n}"] for n in names])
+    rng = np.random.default_rng(SEED + 95)
+    amps = np.array([0.02, 0.2, 1.0, 0.5])[:, None]
+    noise = (rng.standard_normal((4, 22050)) * amps).astype(np.float32)
+    table = {}
+    for preset in ("digit", "speaker"):
+        cfg = getattr(FrontendConfig, preset)()
+        want_g = np.stack([gold[f"{preset}_{n}"] for n in names])
+        want_o = np.stack([frontend_ref.mfcc_fixed_length_ref(
+            row, cfg.utterance_length, sr=cfg.sr, n_fft=cfg.n_fft,
+            hop_length=cfg.hop_length, win_length=cfg.win_length)
+            for row in noise])
+        w = torch.from_numpy(synth_waves(batch, seed=13)).to(dev)
+        rows = {}
+        for name in sorted(Frontend._BACKENDS):
+            if name == "hopdft_int8" and preset == "speaker":
+                try:
+                    Frontend(cfg, backend=name, device=dev)
+                except ValueError:
+                    continue  # refused at construction: 441 / 220
+                check(False, "hopdft_int8 accepted the speaker preset")
+            fe = Frontend(cfg, backend=name, device=dev)
+            err_g = float(np.abs(fe(gw).cpu().numpy() - want_g).max())
+            got_o = fe(noise).cpu().numpy()
+            atol, rtol = FRONTEND_BARS[name]
+            err_o = float(np.abs(got_o - want_o).max())
+            ok = bool(np.all(np.abs(got_o - want_o)
+                             <= atol + rtol * np.abs(want_o)))
+            fe(w)
+            ms = time_ms(lambda: fe(w), reps)
+            rows[name] = (ms, err_g)
+            print(f"frontend {preset} {name}: {ms:.3f} ms at {batch} rows, "
+                  f"golden max_abs {err_g:.3e} (5e-4 held: "
+                  f"{err_g <= GOLDEN_BAR}), noise rows vs oracle {err_o:.3e} "
+                  f"(bar atol {atol} rtol {rtol}) ({card})", flush=True)
+            check(ok, f"frontend {preset} {name}: {err_o} from the oracle")
+        check(rows["cuda"][1] <= GOLDEN_BAR, f"K1 {preset} golden "
+              f"{rows['cuda'][1]}")
+        pick = auto_backend(cfg, dev)
+        held = sorted((ms, n) for n, (ms, e) in rows.items()
+                      if e <= GOLDEN_BAR)
+        print(f"frontend {preset}: auto -> {pick} (the table); this run's "
+              f"fastest holding {GOLDEN_BAR}: {held[0][1]} ({card})",
+              flush=True)
+        check(rows[pick][1] <= GOLDEN_BAR, f"auto {preset} -> {pick}, which "
+              f"read {rows[pick][1]} on the goldens")
+        table[preset] = rows
+    # the split reaches the plain path: one level at the digit preset
+    cfg = dataclasses.replace(FrontendConfig.digit(), dft_split_levels=1)
+    fe = Frontend(cfg, backend="plain", device=dev)
+    err = float(np.abs(fe(gw).cpu().numpy() - np.stack(
+        [gold[f"digit_{n}"] for n in names])).max())
+    w = torch.from_numpy(synth_waves(batch, seed=13)).to(dev)
+    fe(w)
+    ms = time_ms(lambda: fe(w), reps)
+    print(f"frontend digit plain split 1: {ms:.3f} ms, golden {err:.3e} "
+          f"({card})", flush=True)
+    table["digit_split1"] = (ms, err)
+    print(json.dumps({"frontend_table": table}), flush=True)
+    return table
 
 
 # -- timing phase -------------------------------------------------------------
@@ -3155,8 +3668,9 @@ def step_timing_phase(dev, k6_args, mrun_args, k3_epoch_ms, reps=5):
     p_ms = time_ms(run_plain, 1) / n_runs
     out.update(multi_run_fused_ms=f_ms, multi_run_plain_ms=p_ms)
     print(f"time multi-run epoch, {n_runs} runs, ms per run per epoch: fused "
-          f"(K3, state sliced in and copied back) {f_ms:.3f}, plain (loop of "
-          f"autograd epochs) {p_ms:.3f}; card {card}", flush=True)
+          f"(K3, state sliced in and copied back) {f_ms:.3f}, plain (the runs "
+          f"as one batched autograd epoch) {p_ms:.3f}; card {card}",
+          flush=True)
     return out
 
 
@@ -3507,6 +4021,10 @@ def main() -> int:
         prep = timed("prepare", prepare_phase, dev, root=root)
         cli = timed("cli", cli_phase, dev, prep, root, card=card)
         atk = timed("attack", attack_phase, dev, prep, root, card=card)
+        tmulti = timed("train_multi", train_multi_phase, dev, split, root,
+                       card=card)
+        prof = timed("profile", profile_phase, dev, root, card=card)
+    falt = timed("frontend_alt", frontend_alt_phase, dev, card=card)
     timing = timed("timing", timing_phase, dev, serve.pop("engine"),
                    serve.pop("speaker_engine"), serve.pop("recording"))
     ttime = timed("train_timing", train_timing_phase, dev, k3_args)
@@ -3533,6 +4051,7 @@ def main() -> int:
         "train_launches": split["k1_launches"],
         "cli_launches": cli["k1_launches"],
         "attack_launches": atk["k1_launches"],
+        "profile_launches": prof["k1_launches"],
         "max_abs_err": kern["max_abs_err"],
         "max_rel_err": kern["max_rel_err"],
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain "
@@ -3577,6 +4096,8 @@ def main() -> int:
         "replaces": cuda_spectral.REPLACES,
         "launches": train["k2_launches"],
         "cli_launches": cli["k2_launches"],
+        "train_multi_launches": tmulti["plain"]["k2_launches"],
+        "profile_launches": prof["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "sigma_rel_err": k2["sigma_rel_err"],
         "tolerance": "vs twin: sigma rtol 5e-3, u atol 5e-3 (bf16); 1e-4 "
@@ -3603,6 +4124,7 @@ def main() -> int:
         "source": cuda_train.KERNEL_SOURCE, "replaces": cuda_train.REPLACES,
         "launches": train["k3_launches"],
         "cli_launches": cli["k3_launches"],
+        "train_multi_launches": tmulti["fused"]["k3_launches"],
         "max_abs_err": k3["max_abs_err"],
         "tolerance": "vs twin after one epoch: params < lr*max(8, 2*steps), "
                      "layer-0 BN mean < 6e-3, epoch loss/acc < 3e-2, Adam "
@@ -3708,6 +4230,9 @@ def main() -> int:
         "prepare": {**prep, **ftime["prepare"]},
         "cli": cli,
         "attack": atk,
+        "train_multi": tmulti,
+        "profile": prof,
+        "frontend_alt": falt,
         "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"},
         "k6_vs_twin": {k: v for k, v in k6.items() if k != "max_abs_err"},
         "multi_run": {**mrun, "fused_ms_per_run_epoch":

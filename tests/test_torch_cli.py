@@ -90,13 +90,22 @@ def _last_json(capsys):
 
 
 def test_subcommand_table():
-    assert list(cli._SUBCOMMANDS) == ["prepare-data", "train", "evaluate",
-                                      "infer", "certify", "attack",
-                                      "dolphin"]
+    """Nine of the JAX CLI's ten commands (`bench` waits); `infer` and
+    `prepare-data` take the frontend backends and `auto`, and refuse the
+    JAX package's names the port has no counterpart of."""
+    assert list(cli._SUBCOMMANDS) == ["prepare-data", "train", "train-multi",
+                                      "evaluate", "infer", "certify",
+                                      "attack", "dolphin", "profile"]
     with pytest.raises(SystemExit):
         main([])
-    with pytest.raises(SystemExit):  # F5: the engine has no backend switch
-        main(["infer", "--ckpt", "x", "--audio", "x", "--backend", "cuda"])
+    for command in (["infer", "--ckpt", "x", "--audio", "x"],
+                    ["prepare-data", "--task", "digit", "--data-dir", "x",
+                     "--out-dir", "y"]):
+        with pytest.raises(SystemExit):
+            main([*command, "--backend", "xla"])
+    # parsed, then refused for the missing --data (rc 2, not a parse error)
+    assert main(["infer", "--ckpt", "x", "--audio", "x", "--backend",
+                 "hopdft", "--device", "cpu"]) == 2
 
 
 def test_train_writes_the_store(artifacts, trained_pair, capsys):

@@ -3,9 +3,10 @@ multi_run.py): per-run equivalence with the solo trainers, exact freezing,
 rho sweeps, early stopping per run, both epoch backends, and one epoch
 against the JAX package's multi-run program.
 
-The port loops over the runs with the solo programs and the solo generator
-derivation, so run r equals a solo run of seed r bit for bit on the CPU
-(tolerance 0). Against JAX (same stacked initial parameters, shuffle off,
+The port's plain backend runs the runs as one batched program (a `torch.bmm`
+a Dense) with the solo generator derivation, its fused backend loops over
+the solo programs, so run r equals a solo run of seed r bit for bit on the
+CPU with one torch thread (tolerance 0). Against JAX (same stacked initial parameters, shuffle off,
 dropout 0, one epoch of 5 steps): two fp32 programs whose sums run in
 different orders, 2e-4 on the parameters.
 """
@@ -48,6 +49,19 @@ BS = 64
 OPT = adam_optimizer(1e-3)
 CON = make_simple_norm_constraint(rho=1.0)
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the bit-for-bit bars below hold a `torch.bmm` slice
+    of the batched plain epoch to the `torch.mm` of a solo epoch, which is
+    the same product summed in the same order only on one thread (several
+    threads may split a large product differently); it also keeps the file
+    near its solo time under the suite's worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _toy_data(n, n_val, in_dim=24, n_classes=4, seed=0):
