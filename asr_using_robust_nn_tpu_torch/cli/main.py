@@ -90,7 +90,11 @@ def _add_train(sub):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data-parallel", action="store_true",
-                   help="train over all visible devices (not ported yet)")
+                   help="train over the ranks of a process group (launch "
+                        "with torchrun, one rank a card; as one process a "
+                        "one-rank mesh): every rank trains on its rows of "
+                        "each batch, rank 0 alone prints and writes")
+    _add_dist_backend(p)
     p.add_argument("--device-resident", action="store_true",
                    help="keep the whole split on the device and run each "
                         "epoch as one program (train/epoch_scan.py, or the "
@@ -158,11 +162,21 @@ def _add_train_multi(sub):
                         "differ between them, so keep one backend across a "
                         "merged study")
     p.add_argument("--runs-mesh", action="store_true",
-                   help="shard the runs axis across devices (not ported "
-                        "yet)")
+                   help="split the runs over the ranks of a process group "
+                        "(launch with torchrun; plain backend): each rank "
+                        "trains its share, rank 0 alone prints and writes")
+    _add_dist_backend(p)
     p.add_argument("--no-standardize", action="store_true")
     p.add_argument("--bf16", action="store_true")
     _add_device(p)
+
+
+def _add_dist_backend(p):
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="the process group's backend under torchrun "
+                        "(default: nccl on a CUDA device, one card a rank; "
+                        "gloo on the CPU). gloo also runs ranks that share "
+                        "one card")
 
 
 def _add_profile(sub):
@@ -396,10 +410,30 @@ def cmd_train(args):
                  ("epoch_backend", "auto")):
         if getattr(args, k) is None:
             setattr(args, k, v)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel: training over several devices is not ported "
-            "yet (ROADMAP.md queue 1 item 10, the parallel slice)")
+    return _in_process_group(args.data_parallel, args,
+                             lambda mesh: _train(args, mesh))
+
+
+def _in_process_group(wanted: bool, args, fn):
+    """-> fn(mesh): with `wanted`, inside the process group the launcher's
+    environment names (`torchrun` sets it; none: a one-rank mesh) on a
+    'data' mesh of its ranks, the group closed after; else fn(None)."""
+    if not wanted:
+        return fn(None)
+    import torch.distributed as dist
+
+    from ..parallel.mesh import data_mesh, maybe_init_distributed
+
+    started = maybe_init_distributed(backend=args.dist_backend,
+                                     device=args.device)
+    try:
+        return fn(data_mesh())
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, mesh):
     import torch
 
     from ..constraints import (lipschitz_monitor, make_custom_constraint,
@@ -466,9 +500,15 @@ def cmd_train(args):
                        epochs_per_dispatch=args.epochs_per_dispatch or 1,
                        epoch_backend=args.epoch_backend)
     callbacks = (lipschitz_monitor(cfg),) if args.monitor_lipschitz else ()
-    trainer = Trainer(cfg, tcfg, constraint=constraint,
-                      constraint_state=cstate, epoch_callbacks=callbacks,
-                      device=dev)
+    kw = dict(constraint=constraint, constraint_state=cstate,
+              epoch_callbacks=callbacks, device=dev)
+    if args.data_parallel:
+        from ..parallel import DataParallelTrainer
+
+        trainer = DataParallelTrainer(cfg, mesh, tcfg, **kw)
+    else:
+        trainer = Trainer(cfg, tcfg, **kw)
+    say = print if trainer.writes_files else (lambda *a, **k: None)
     init_params = init_state = init_opt = best0 = None
     if args.resume:
         tree, meta = CheckpointManager(args.ckpt).load_best()
@@ -485,16 +525,18 @@ def cmd_train(args):
             o["count"], o["mu"], o["nu"], device=dev,
             moments_dtype=trainer.optimizer.moments_dtype)
         best0 = meta.get("val_loss")
-        print(f"resumed from {args.ckpt} (epoch {meta.get('epoch')}, "
-              f"val_loss {best0})")
+        say(f"resumed from {args.ckpt} (epoch {meta.get('epoch')}, "
+            f"val_loss {best0})")
     res = trainer.fit(tr, d.train_label, dv, d.dev_label,
                       params=init_params, state=init_state,
                       opt_state=init_opt, initial_best_val=best0,
                       checkpoint_dir=args.ckpt, metrics_dir=args.metrics_dir)
-    print(f"epoch backend: {res['epoch_backend']}")
+    say(f"epoch backend: {res['epoch_backend']}")
     test_loss, test_acc = trainer.evaluate(
         *params_from_numpy(res["best_params"], res["best_state"], dev),
         te, d.test_label)
+    if not trainer.writes_files:
+        return 0
     print(f"Test loss: {test_loss} / Test accuracy: {test_acc}")
     if args.export_h5:
         export_h5(args.export_h5, res["best_params"], res["best_state"])
@@ -535,13 +577,19 @@ def cmd_train_multi(args):
             print("error: --rhos needs --variant constrained and a "
                   "--constraint algorithm", file=sys.stderr)
             return 2
-    if args.runs_mesh:
-        print("error: --runs-mesh: sharding the runs axis over devices is "
-              "not ported yet (ROADMAP.md queue 1 item 10, the parallel "
-              "slice)", file=sys.stderr)
+    if args.runs_mesh and args.epoch_backend == "fused":
+        print("error: --runs-mesh runs the plain backend (the fused epoch "
+              "is single-device); use --epoch-backend plain",
+              file=sys.stderr)
         return 2
     if not _need_artifacts(args.data):
         return 2
+    return _in_process_group(
+        args.runs_mesh, args,
+        lambda mesh: _train_multi(args, seeds, rhos, mesh))
+
+
+def _train_multi(args, seeds, rhos, mesh):
     import torch
 
     from ..constraints import (make_custom_constraint, make_fista_constraint,
@@ -597,10 +645,17 @@ def cmd_train_multi(args):
               "--constraint simple at one rho (the fused epoch's "
               "configurations); use --epoch-backend plain", file=sys.stderr)
         return 2
+    if mesh is not None and len(grid) % mesh.size:
+        print(f"error: --runs-mesh needs the run count ({len(grid)}) to "
+              f"divide across {mesh.size} devices — adjust --seeds/--rhos",
+              file=sys.stderr)
+        return 2
     dev = resolve_device(args.device)
     res = fit_multi_run(cfg, tcfg, tr, d.train_label, dv, d.dev_label,
                         [s for s, _ in grid], epoch_backend=args.epoch_backend,
-                        device=dev, **kw)
+                        mesh=mesh, device=dev, **kw)
+    if mesh is not None and mesh.rank != 0:
+        return 0  # rank 0 evaluates, writes the stores and prints
 
     # one test evaluation of every run's best snapshot, then a store a run
     vb = 1024 if len(te) >= 1024 else max(8, len(te))

@@ -29,7 +29,7 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["MLPConfig", "init_mlp", "apply_mlp", "predict_probs",
+__all__ = ["MLPConfig", "init_mlp", "apply_mlp", "data_sum", "predict_probs",
            "dense_kernels", "set_dense_kernels"]
 
 HIDDEN = (1024, 512, 256, 128, 64)
@@ -116,6 +116,9 @@ def apply_mlp(
     train: bool = False,
     generator: torch.Generator | None = None,
     weights: torch.Tensor | None = None,
+    mesh=None,
+    kinds=None,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Forward pass -> (logits, new_state).
 
@@ -125,20 +128,42 @@ def apply_mlp(
     `weights` (train mode only): per-row weights for the BN batch moments,
     divided by sum(weights) + 1e-9, so rows of weight 0 drop out of the
     statistics exactly. None keeps plain mean/var.
+
+    Under a `mesh` (parallel/mesh.py) `x` holds this rank's rows of a batch
+    and `params`/`state` this rank's leaves:
+      - the weighted moments' sums (sum w*h, sum w, then sum w*(h - mean)^2)
+        go over the mesh's 'data' axis through a differentiable all-reduce,
+        so they are the whole batch's and BN keeps its cross-rank gradient
+        terms (`weights=None` means the batch is whole on every rank);
+      - `kinds[i]` is Dense i's split over 'model': "rep" (whole), "col"
+        (its output columns: outputs, bias and BN leaves are this rank's;
+        Megatron's identity/all-reduce pair on its input) or "row" (its
+        input rows: the partial products are summed over 'model');
+      - `rows` = (lo, n): x[0] is row lo of an n-row batch, and each
+        dropout mask is this rank's block of the (n, width) mask one device
+        draws (rows past n keep every unit).
     """
     if x.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False  # fp32 GEMMs, never TF32
+    if mesh is not None:
+        from ..parallel.mesh import MODEL_AXIS, copy_to_axis, reduce_from_axis
     n_hidden = len(cfg.hidden)
+    kinds = kinds or ("rep",) * cfg.n_dense
     new_slayers = []
     h = x
     if weights is not None:
-        denom = torch.sum(weights) + 1e-9
+        denom = data_sum(mesh, torch.sum(weights), grad=False) + 1e-9
     for i, p in enumerate(params["layers"]):
+        if kinds[i] == "col":
+            h = copy_to_axis(mesh, h, MODEL_AXIS)
         if cfg.compute_dtype == "bfloat16":
             h = (h.to(torch.bfloat16).float()
-                 @ p["w"].to(torch.bfloat16).float()) + p["b"]
+                 @ p["w"].to(torch.bfloat16).float())
         else:
-            h = h @ p["w"] + p["b"]
+            h = h @ p["w"]
+        if kinds[i] == "row":
+            h = reduce_from_axis(mesh, h, MODEL_AXIS)
+        h = h + p["b"]
         if i == n_hidden:  # output layer: logits
             new_slayers.append(dict(state["layers"][i]))
             break
@@ -147,9 +172,10 @@ def apply_mlp(
         if cfg.batch_norm:
             if train:
                 if weights is not None:
-                    mean = torch.sum(h * weights[:, None], 0) / denom
-                    var = torch.sum(
-                        ((h - mean) ** 2) * weights[:, None], 0) / denom
+                    mean = data_sum(
+                        mesh, torch.sum(h * weights[:, None], 0)) / denom
+                    var = data_sum(mesh, torch.sum(
+                        ((h - mean) ** 2) * weights[:, None], 0)) / denom
                 else:
                     mean = torch.mean(h, dim=0)
                     var = torch.var(h, dim=0, unbiased=False)
@@ -166,10 +192,41 @@ def apply_mlp(
         rate = cfg.dropout[i] if i < len(cfg.dropout) else 0.0
         if train and rate > 0.0 and generator is not None:
             keep = 1.0 - rate
-            mask = torch.rand(h.shape, generator=generator,
-                              device=h.device) < keep
+            mask = _keep_mask(h, generator, keep, rows, mesh,
+                              kinds[i] == "col")
             h = torch.where(mask, h / keep, 0.0)
     return h, {"layers": new_slayers}
+
+
+def data_sum(mesh, t: torch.Tensor, grad: bool = True) -> torch.Tensor:
+    """`t` summed over the 'data' ranks of `mesh` (`t` itself without a
+    mesh). With `grad` the sum is differentiable: its backward sums the
+    gradient over the same ranks."""
+    if mesh is None:
+        return t
+    from ..parallel.mesh import all_reduce_sum, reduce_sum
+
+    return all_reduce_sum(mesh, t) if grad else reduce_sum(mesh, t)
+
+
+def _keep_mask(h, generator, keep, rows, mesh, col):
+    """The dropout keep-mask of `h`: drawn on h's shape, or, with `rows` =
+    (lo, n), this rank's block of the (n, width) mask one device draws
+    (`col`: this rank's columns of it over 'model')."""
+    lo, n = rows if rows is not None else (0, h.shape[0])
+    if (lo, n) == (0, h.shape[0]) and not col:  # the whole batch is here
+        return torch.rand(h.shape, generator=generator, device=h.device) < keep
+    from ..parallel.mesh import MODEL_AXIS
+
+    width = h.shape[1] * (mesh.shape[MODEL_AXIS] if col else 1)
+    full = torch.rand((n, width), generator=generator, device=h.device) < keep
+    if col:
+        c = mesh.coords[MODEL_AXIS] * h.shape[1]
+        full = full[:, c: c + h.shape[1]]
+    mask = torch.ones(h.shape, dtype=torch.bool, device=h.device)
+    take = max(0, min(h.shape[0], n - lo))
+    mask[:take] = full[lo: lo + take]
+    return mask
 
 
 def predict_probs(cfg: MLPConfig, params: dict, state: dict,

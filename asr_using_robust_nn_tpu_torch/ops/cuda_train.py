@@ -1142,7 +1142,8 @@ def parity_bars(steps: int, lr: float = 1e-3) -> dict:
 
 
 def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
-                          n_true: int) -> dict:
+                          n_true: int, seeds: tuple[int, int] = (7, 3)
+                          ) -> dict:
     """Numeric check of the fused epoch against the plain epoch: one
     dropout-0 epoch from the same init and the same permutation on both
     (the plain arm on the bf16 model config, the kernel's class), comparing
@@ -1151,10 +1152,21 @@ def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
 
     Bars: `parity_bars`. `data` is (N_pad, in_dim) float32 on the device,
     row padded to a multiple of `batch`; `labels` (N_pad,). Returns {"ok",
-    the deltas, the bars}."""
+    the deltas, the bars}. `seeds`: the generator seeds of the init and of
+    the permutation.
+
+    The BN bar (6e-3) is the JAX package's, whatever the epoch's length.
+    The layer-0 running-mean gap grows with the epoch and depends on the
+    data and the draw. On an NVIDIA H100 80GB HBM3 (700 W), chip_smoke.py's
+    train_multi phase read, at 8 / 16 / 32 / 64 steps of 512, in two seeded
+    draws: voiced bursts 2.6e-4 / 5.7e-4 / 4.1e-3 / 4.9e-3 and 3.2e-4 /
+    6.3e-4 / 1.9e-3 / 4.5e-3 (under the bar); steady tones 5.8e-4 / 1.8e-3
+    / 1.7e-2 / 8.7e-3 and 4.8e-4 / 3.4e-3 / 5.1e-3 / 1.7e-2 (over it at 32
+    or 64 steps). So the check can fail on a long epoch of steady tones;
+    whether its bar should scale with the epoch is an open question."""
     dev = data.device
     cfg0 = dataclasses.replace(mcfg, dropout=(0.0,) * len(mcfg.dropout))
-    params, state = init_mlp(cfg0, _generator(dev, 7), device=dev)
+    params, state = init_mlp(cfg0, _generator(dev, seeds[0]), device=dev)
     spec = FusedStepSpec(cfg=cfg0, batch=batch, rho=0.1, pi_iters=4)
     fs = pack_state(spec, params, state)
 
@@ -1165,12 +1177,12 @@ def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
                               reshuffle_inner=False)
     px, sx, _, _, loss_x, acc_x = ep_plain(
         params, state, opt.init(params), con.init(params), data, labels,
-        _generator(dev, 3), None, n_true)
+        _generator(dev, seeds[1]), None, n_true)
 
     ep_fused = build_fused_epoch_fn(spec, epochs_per_call=1,
                                     reshuffle_inner=False)
     fs2, loss_f, acc_f = ep_fused(fs, pad_features(spec, data), labels,
-                                  _generator(dev, 3), None, n_true)
+                                  _generator(dev, seeds[1]), None, n_true)
     pf, sf = unpack_params(spec, fs2)
 
     def maxdiff(key):

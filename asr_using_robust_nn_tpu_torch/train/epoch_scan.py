@@ -14,23 +14,57 @@ from __future__ import annotations
 
 import torch
 
-from ..models.mlp import MLPConfig, apply_mlp
-from .trainer import _value_and_grad, apply_update
+from ..models.mlp import MLPConfig, apply_mlp, data_sum
+from .trainer import (_tree_leaves, _tree_map, _value_and_grad, apply_update,
+                      cce_from_logits)
 
 __all__ = ["build_epoch_fn", "build_eval_fn", "epoch_program", "eval_program",
-           "shuffle_batches"]
+           "eval_sums", "masked_value_and_grad", "shuffle_batches"]
 
 
-def _masked_forward_loss(model_cfg, params, state, x, y, w, gen):
-    """Row-weighted CCE and accuracy; BN moments leave out weight-0 rows."""
+def _masked_forward_loss(model_cfg, params, state, x, y, w, gen, mesh=None,
+                         rows=None, kinds=None):
+    """Row-weighted CCE and accuracy; BN moments leave out weight-0 rows.
+    Under a `mesh` (apply_mlp's `mesh`, `rows`, `kinds`) `x` holds this
+    rank's rows: the loss is their CE sum over the whole batch's weight, so
+    the ranks' losses sum to the whole batch's, and the accuracy is the
+    whole batch's. `w=None` (the batch whole and unpadded here) is the
+    plain mean, as `Trainer`'s step takes it."""
     logits, new_state = apply_mlp(model_cfg, params, state, x, train=True,
-                                  generator=gen, weights=w)
-    denom = torch.sum(w) + 1e-9
+                                  generator=gen, weights=w, mesh=mesh,
+                                  rows=rows, kinds=kinds)
+    hits = (torch.argmax(logits, -1) == y).float()
+    if w is None:
+        return cce_from_logits(logits, y), (new_state, torch.mean(hits))
+    denom = data_sum(mesh, torch.sum(w), grad=False) + 1e-9
     logp = torch.log_softmax(logits, -1)
     per = -torch.gather(logp, -1, y[:, None].long())[:, 0]
     loss = torch.sum(per * w) / denom
-    acc = torch.sum((torch.argmax(logits, -1) == y).float() * w) / denom
+    acc = data_sum(mesh, torch.sum(hits * w), grad=False) / denom
     return loss, (new_state, acc)
+
+
+def masked_value_and_grad(model_cfg, params, state, x, y, w, gen, mesh=None,
+                          rows=None, kinds=None):
+    """-> (loss, (new_state, acc)), grads of `_masked_forward_loss`. Under a
+    mesh, with `w` (the rows of a batch split over 'data'), the loss and the
+    gradients are summed over 'data' in one all-reduce: every rank gets the
+    whole batch's loss and its gradient with respect to this rank's
+    parameters."""
+    (loss, aux), grads = _value_and_grad(
+        lambda p: _masked_forward_loss(model_cfg, p, state, x, y, w, gen,
+                                       mesh, rows, kinds), params)
+    if mesh is None or w is None:
+        return (loss, aux), grads
+    from ..parallel.mesh import DATA_AXIS, reduce_sum
+
+    if mesh.group(DATA_AXIS) is None:
+        return (loss, aux), grads
+    leaves = _tree_leaves(grads)
+    flat = reduce_sum(mesh, torch.cat([loss.reshape(1)]
+                                      + [g.reshape(-1) for g in leaves]))
+    it = iter(torch.split(flat[1:], [g.numel() for g in leaves]))
+    return (flat[0], aux), _tree_map(lambda g: next(it).view_as(g), grads)
 
 
 def shuffle_batches(data, labels, batch_size, shuffle, perm_gen, n_true):
@@ -55,7 +89,8 @@ def shuffle_batches(data, labels, batch_size, shuffle, perm_gen, n_true):
 
 def epoch_program(model_cfg: MLPConfig, optimizer, constraint=None,
                   batch_size: int = 256, shuffle: bool = True,
-                  epochs_per_call: int = 1, reshuffle_inner: bool = True):
+                  epochs_per_call: int = 1, reshuffle_inner: bool = True,
+                  mesh=None):
     """-> `epoch(params, state, opt_state, cstate, data, labels, perm_gen,
     drop_gen, n_true)` -> (params, state, opt_state, cstate, mean_loss,
     mean_acc).
@@ -66,15 +101,27 @@ def epoch_program(model_cfg: MLPConfig, optimizer, constraint=None,
     torch.Generators on the data's device. `epochs_per_call` > 1 runs E
     epochs per call and reports the last one's loss/acc; the permutation is
     drawn once per call unless `reshuffle_inner`, while dropout always draws
-    afresh."""
+    afresh.
+
+    With a `mesh` (a 'data' axis of ranks; parallel/mesh.py) every rank
+    holds the whole split and draws the same permutation, and trains on its
+    contiguous rows of each batch (`batch_size` must divide over the axis):
+    the BN moments, the loss and the gradients span the whole batch
+    (parallel/data_parallel.py), the dropout masks are the single-device
+    ones."""
+    lo, hi, rows = 0, batch_size, None
+    if mesh is not None:
+        from ..parallel.mesh import axis_rows
+
+        lo, hi = axis_rows(mesh, batch_size)
+        rows = (lo, batch_size)
 
     def run_steps(params, state, opt_state, cstate, xs, ys, ws, drop_gen):
         losses, accs = [], []
         for i in range(xs.shape[0]):
-            (loss, (state, acc)), grads = _value_and_grad(
-                lambda p, s, x, y, w: _masked_forward_loss(
-                    model_cfg, p, s, x, y, w, drop_gen),
-                params, state, xs[i], ys[i], ws[i])
+            (loss, (state, acc)), grads = masked_value_and_grad(
+                model_cfg, params, state, xs[i][lo:hi], ys[i][lo:hi],
+                ws[i][lo:hi], drop_gen, mesh, rows)
             params, opt_state, cstate = apply_update(
                 optimizer, model_cfg, constraint, grads, params, opt_state,
                 cstate)
@@ -102,18 +149,37 @@ def epoch_program(model_cfg: MLPConfig, optimizer, constraint=None,
 
 def build_epoch_fn(model_cfg: MLPConfig, optimizer, constraint=None,
                    batch_size: int = 256, shuffle: bool = True,
-                   epochs_per_call: int = 1, reshuffle_inner: bool = True):
-    """-> `epoch_program` (same signature). PyTorch runs it eagerly; meshes
-    wait for the parallel slice."""
+                   epochs_per_call: int = 1, reshuffle_inner: bool = True,
+                   mesh=None):
+    """-> `epoch_program` (same signature). PyTorch runs it eagerly."""
     return epoch_program(model_cfg, optimizer, constraint,
                          batch_size=batch_size, shuffle=shuffle,
                          epochs_per_call=epochs_per_call,
-                         reshuffle_inner=reshuffle_inner)
+                         reshuffle_inner=reshuffle_inner, mesh=mesh)
 
 
-def eval_program(model_cfg: MLPConfig, batch_size: int = 1024):
+def eval_sums(model_cfg, params, state, x, y, w, mesh=None, kinds=None):
+    """Eval-mode forward of the rows `x` (apply_mlp's `mesh`, `kinds`) ->
+    (sum of CE * w, sum of hits * w, predictions), over these rows only."""
+    logits, _ = apply_mlp(model_cfg, params, state, x, train=False,
+                          mesh=mesh, kinds=kinds)
+    logp = torch.log_softmax(logits, -1)
+    per = -torch.gather(logp, -1, y[:, None].long())[:, 0]
+    pred = torch.argmax(logits, -1)
+    return torch.sum(per * w), torch.sum((pred == y).float() * w), pred
+
+
+def eval_program(model_cfg: MLPConfig, batch_size: int = 1024, mesh=None):
     """-> `evaluate(params, state, data, labels, n_true)` -> (loss, acc) over
-    a padded device-resident split; rows from n_true on are left out."""
+    a padded device-resident split; rows from n_true on are left out. With
+    a `mesh`, each rank scores its rows of each batch (`batch_size` must
+    divide over 'data') and the sums are added over the axis."""
+    if mesh is not None:
+        from ..parallel.mesh import axis_rows, reduce_sum
+
+        lo, hi = axis_rows(mesh, batch_size)
+    else:
+        lo, hi = 0, batch_size
 
     @torch.no_grad()
     def evaluate(params, state, data, labels, n_true):
@@ -121,20 +187,20 @@ def eval_program(model_cfg: MLPConfig, batch_size: int = 1024):
         loss_sum = torch.zeros((), device=data.device)
         hit_sum = torch.zeros((), device=data.device)
         for i in range(0, n_pad, batch_size):
-            x, y = data[i: i + batch_size], labels[i: i + batch_size]
-            w = (torch.arange(i, i + x.shape[0], device=data.device)
+            x, y = data[i + lo: i + hi], labels[i + lo: i + hi]
+            w = (torch.arange(i + lo, i + lo + x.shape[0], device=data.device)
                  < n_true).float()
-            logits, _ = apply_mlp(model_cfg, params, state, x, train=False)
-            logp = torch.log_softmax(logits, -1)
-            per = -torch.gather(logp, -1, y[:, None].long())[:, 0]
-            loss_sum = loss_sum + torch.sum(per * w)
-            hit_sum = hit_sum + torch.sum(
-                (torch.argmax(logits, -1) == y).float() * w)
+            loss, hits, _ = eval_sums(model_cfg, params, state, x, y, w)
+            loss_sum = loss_sum + loss
+            hit_sum = hit_sum + hits
+        if mesh is not None:
+            loss_sum, hit_sum = reduce_sum(
+                mesh, torch.stack([loss_sum, hit_sum]))
         return loss_sum / n_true, hit_sum / n_true
 
     return evaluate
 
 
-def build_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024):
+def build_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024, mesh=None):
     """-> `eval_program` (same signature)."""
-    return eval_program(model_cfg, batch_size=batch_size)
+    return eval_program(model_cfg, batch_size=batch_size, mesh=mesh)

@@ -31,6 +31,13 @@ Per-run early stopping and best-snapshot retention stay exact by freezing:
 once a run's patience is exhausted its state is carried over bit for bit
 (the `active` mask), so its trajectory, best snapshot and validation metrics
 are those of a run that stopped. A frozen run is not computed.
+
+With a `mesh` (parallel/mesh.py), the runs axis splits over the ranks of
+its first axis: rank k of W trains runs [k R/W, (k+1) R/W) with the batched
+plain epoch, each run with its own seed-derived generators, so the split
+changes no draw, and the results are gathered so that every rank returns
+all R runs in order. The ranks stop together, when no run of any rank is
+active. The runs share nothing, so training runs no collective.
 """
 
 from __future__ import annotations
@@ -139,9 +146,12 @@ def init_multi_run_state(model_cfg: MLPConfig, optimizer, seeds,
     Run r sees the init, shuffles and dropout draws of a solo
     `Trainer.fit` with `TrainConfig(seed=seeds[r])`. `constraint_init` is a
     `Constraint.init` (params -> cstate); every engine constraint's init
-    depends only on the kernels' shapes."""
-    _no_mesh(mesh)
+    depends only on the kernels' shapes. With a `mesh`, the result holds
+    this rank's share of the runs (`_run_share`)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        lo, hi = _run_share(mesh, len(seeds))
+        seeds = list(seeds)[lo:hi]
     seeds, kps, kds = _run_keys(seeds)
     runs = []
     for s in seeds:
@@ -322,7 +332,6 @@ def build_multi_run_epoch_fn(
     shuffle: bool = True,
     epochs_per_call: int = 1,
     reshuffle_inner: bool = True,
-    mesh=None,
 ):
     """-> `fn(params, state, opt_state, cstate, data, labels, perm_gens,
     drop_gens, active, rhos, n_true)` where the four train-state trees are
@@ -338,10 +347,11 @@ def build_multi_run_epoch_fn(
     (params, state, opt_state, cstate, mean_loss[R], mean_acc[R]); the
     inputs are not modified. The active runs train as one batched program
     (`apply_mlp_runs`: a `torch.bmm` per Dense), the constraint's
-    projection once per run."""
+    projection once per run. The runs are independent: under a mesh the
+    function trains the runs its trees hold, this rank's share from
+    `init_multi_run_state(mesh=...)`, with no collective."""
     if constraint is not None and constraint_factory is not None:
         raise ValueError("pass either constraint or constraint_factory")
-    _no_mesh(mesh)
 
     def fn(params, state, opt_state, cstate, data, labels, perm_gens,
            drop_gens, active, rhos, n_true):
@@ -374,12 +384,12 @@ def build_multi_run_epoch_fn(
     return fn
 
 
-def build_multi_run_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024,
-                            mesh=None):
+def build_multi_run_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024):
     """-> `evaluate(params, state, data, labels, n_true)` with params/state
     stacked on a runs axis -> (val_loss[R], val_acc[R]): every run's
-    forward on each shared batch as one batched program."""
-    _no_mesh(mesh)
+    forward on each shared batch as one batched program. Under a mesh it
+    scores the runs its trees hold (this rank's share), as
+    `build_multi_run_epoch_fn` trains them."""
 
     @torch.no_grad()
     def fn(params, state, data, labels, n_true):
@@ -403,11 +413,16 @@ def build_multi_run_eval_fn(model_cfg: MLPConfig, batch_size: int = 1024,
     return fn
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharding the runs axis over devices is not ported yet "
-            "(ROADMAP.md queue 1 item 10, the parallel slice)")
+def _run_share(mesh, n_runs: int) -> tuple[int, int]:
+    """[lo, hi) of the runs this rank trains: the runs axis split over the
+    mesh's first axis; ValueError unless it divides."""
+    from ..parallel.mesh import axis_rows
+
+    axis = mesh.axis_names[0]
+    if n_runs % mesh.shape[axis]:
+        raise ValueError(f"runs axis ({n_runs}) must divide across the "
+                         f"{mesh.shape[axis]}-rank mesh")
+    return axis_rows(mesh, n_runs, axis)
 
 
 def _where_runs(better, new, old):
@@ -461,7 +476,12 @@ def fit_multi_run(
     epochs_run [R] and history arrays of shape [n_chunks, R] (numpy). After
     a run freezes, its val_loss/val_acc rows repeat its frozen values and its
     train loss/acc rows read NaN; epochs_run[r] marks where run r's history
-    ends."""
+    ends.
+
+    `mesh` splits the runs axis over the ranks of the mesh's first axis
+    (len(seeds) must divide, ValueError otherwise; the plain backend only,
+    as in the JAX package): each rank trains its share and every rank
+    returns all the runs, gathered in order."""
     from ..parallel.mesh import pad_to_multiple
 
     if constraint is not None and constraint_factory is not None:
@@ -479,19 +499,18 @@ def fit_multi_run(
     if epoch_backend not in ("plain", "fused"):
         raise ValueError(f"unknown epoch_backend {epoch_backend!r} (valid: "
                          f"plain, fused)")
-    _no_mesh(mesh)
     use_fused = epoch_backend == "fused"
     if use_fused:
         kind = getattr(constraint, "_asrtpu_kind", None)
         meta = getattr(constraint, "_asrtpu_meta", None) or {}
-        if constraint_factory is not None or (
+        if mesh is not None or constraint_factory is not None or (
                 constraint is not None
                 and not (kind == "simple_norm" and meta.get("affected_all"))):
             raise ValueError(
-                "epoch_backend='fused' supports either no constraint or the "
-                "full (all-layers) simple_norm at a fixed rho: the "
-                "configurations the fused epoch implements (pass "
-                "epoch_backend='plain' otherwise)")
+                "epoch_backend='fused' supports single-device runs with "
+                "either no constraint or the full (all-layers) simple_norm "
+                "at a fixed rho: the configurations the fused epoch "
+                "implements (pass epoch_backend='plain' otherwise)")
     seeds = np.asarray(seeds)
     n_runs = len(seeds)
     rho_list = None
@@ -503,6 +522,11 @@ def fit_multi_run(
         if constraint_init is None:
             # every engine constraint's init is independent of rho
             constraint_init = constraint_factory(1.0).init
+    if mesh is not None:
+        lo, hi = _run_share(mesh, n_runs)
+        seeds = seeds[lo:hi]
+        rho_list = None if rho_list is None else rho_list[lo:hi]
+        n_runs = hi - lo
 
     dev = resolve_device(device)
     bs = cfg.batch_size
@@ -588,7 +612,7 @@ def fit_multi_run(
     ep_stride = cfg.epochs_per_dispatch
     for epoch in range(0, cfg.epochs, ep_stride):
         active_np = wait < cfg.patience
-        if not active_np.any():
+        if not _any_active(mesh, active_np, dev):
             break
         this_stride = min(ep_stride, cfg.epochs - epoch)
         if this_stride not in epoch_fns:
@@ -633,6 +657,13 @@ def fit_multi_run(
                   if constraint is not None else ())
     if best is None:
         best = (params, state, opt_state)
+    history = {k: np.stack(v) if v else np.zeros((0, n_runs))
+               for k, v in history.items()}
+    if mesh is not None:
+        (params, state, opt_state, cstate, best, best_val, best_epoch,
+         epochs_run, history) = _gather_runs(
+            mesh, (params, state, opt_state, cstate, best, best_val,
+                   best_epoch, epochs_run, history), dev)
     best_params, best_state, best_opt = _tree_map(
         lambda t: t.detach().cpu().clone(), best)
     return {
@@ -646,6 +677,35 @@ def fit_multi_run(
         "best_val_loss": best_val,
         "best_epoch": best_epoch,
         "epochs_run": epochs_run,
-        "history": {k: np.stack(v) if v else np.zeros((0, n_runs))
-                    for k, v in history.items()},
+        "history": history,
     }
+
+
+def _any_active(mesh, active_np, dev) -> bool:
+    """Whether any run of any rank still trains: every rank reads the same
+    reduced value, so all leave the loop together."""
+    if mesh is None:
+        return bool(active_np.any())
+    from ..parallel.mesh import reduce_sum
+
+    n = torch.tensor(float(active_np.sum()), device=dev)
+    return bool(reduce_sum(mesh, n, mesh.axis_names[0]) > 0)
+
+
+def _gather_runs(mesh, trees, dev):
+    """Every tensor and numpy leaf of `trees` with its runs axis gathered
+    over the mesh's first axis, in rank order (history arrays: the runs
+    axis is the second). A collective: every rank calls it."""
+    from ..parallel.mesh import gather_rows
+
+    axis = mesh.axis_names[0]
+
+    def gather(x, dim):
+        if isinstance(x, torch.Tensor):
+            return gather_rows(mesh, x, axis, dim)
+        t = torch.as_tensor(np.ascontiguousarray(x), device=dev)
+        return gather_rows(mesh, t, axis, dim).cpu().numpy()
+
+    *head, history = trees
+    out = _tree_map(lambda x: gather(x, 0), tuple(head))
+    return (*out, {k: gather(v, 1) for k, v in history.items()})

@@ -47,10 +47,10 @@ class TrainConfig:
     # 'plain' = train/epoch_scan.py (autograd); 'fused' = K3, the fused epoch
     # (ops/cuda_train.py: hand-written kernels replayed as one CUDA graph per
     # epoch; on a CPU device its plain twin runs); 'auto' = 'fused' iff the
-    # device is CUDA, the optimizer state is fresh and the constraint is the
-    # full simple_norm (or None), else 'plain'. 'fused' is held once per
-    # process and configuration by `epoch_parity_vs_plain`, and a failed
-    # check raises.
+    # device is CUDA, the fit has no mesh, the optimizer state is fresh and
+    # the constraint is the full simple_norm (or None), else 'plain'.
+    # 'fused' is held once per process and configuration by
+    # `epoch_parity_vs_plain`, and a failed check raises.
 
 
 def _tree_map(fn, *trees):
@@ -179,6 +179,10 @@ class Trainer:
     the NonNeg clamp. Everything runs on `device` (None: the CUDA device, an
     error where there is none; "cpu" for the CPU)."""
 
+    # the ranks a parallel trainer's steps span (parallel/mesh.py); a
+    # single-device trainer has none
+    mesh = None
+
     def __init__(
         self,
         model_cfg: MLPConfig,
@@ -240,16 +244,17 @@ class Trainer:
                              f"(valid: auto, plain, fused)")
         kind = getattr(self.constraint, "_asrtpu_kind", None)
         meta = getattr(self.constraint, "_asrtpu_meta", None) or {}
-        supported = fresh_opt and (
+        supported = self.mesh is None and fresh_opt and (
             self.constraint is None
             or (kind == "simple_norm" and meta.get("affected_all")))
         if cfg.epoch_backend == "fused":
             if not supported:
                 raise ValueError(
-                    "epoch_backend='fused' needs a fresh optimizer state and "
-                    "either no constraint or the full (all-layers) "
-                    "simple_norm constraint: the configurations the fused "
-                    "epoch implements")
+                    "epoch_backend='fused' needs a single-device fit (no "
+                    "mesh) with a fresh optimizer state and either no "
+                    "constraint or the full (all-layers) simple_norm "
+                    "constraint: the configurations the fused epoch "
+                    "implements")
             return True
         return supported and self.device.type == "cuda"
 
@@ -270,6 +275,21 @@ class Trainer:
                      else _tree_map(own, opt_state))
         cstate = _tree_map(own, self.constraint_state)
         return params, state, opt_state, cstate
+
+    @property
+    def writes_files(self) -> bool:
+        """Whether this process writes the fit's checkpoints and metrics
+        (under a mesh: rank 0 alone; two ranks would race on one file)."""
+        return True
+
+    def _full_trees(self, params, state, opt_state=None):
+        """The whole (params, state, opt_state) trees behind this process's
+        own; a trainer whose ranks hold shards gathers them here."""
+        return params, state, opt_state
+
+    def _place_batch(self, x, y):
+        """A host batch -> (x, y) tensors on this trainer's device."""
+        return self._tensor(x, torch.float32), self._tensor(y, torch.int64)
 
     def _batches(self, n, rng):
         idx = np.arange(n)
@@ -348,18 +368,21 @@ class Trainer:
         batch_idx = self._batches(len(train_x), rng)
 
         host = lambda t: t.detach().cpu().clone()  # noqa: E731
+
+        def snapshot():
+            return _tree_map(host, self._full_trees(params, state)[:2])
+
         best_val = np.inf if initial_best_val is None else float(
             initial_best_val)
-        best = (None if initial_best_val is None else
-                (_tree_map(host, params), _tree_map(host, state)))
+        best = None if initial_best_val is None else snapshot()
         wait = 0
         history = {"loss": [], "acc": [], "val_loss": [], "val_acc": []}
         ckpt = writer = None
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and self.writes_files:
             from .checkpoints import CheckpointManager
 
             ckpt = CheckpointManager(checkpoint_dir)
-        if metrics_dir is not None:
+        if metrics_dir is not None and self.writes_files:
             from ..utils.profiling import MetricWriter
 
             writer = MetricWriter(metrics_dir)
@@ -402,8 +425,7 @@ class Trainer:
                 # device scalars, read once per epoch
                 losses, accs, ns = [], [], []
                 for bidx in batch_idx:
-                    bx = self._tensor(train_x[bidx], torch.float32)
-                    by = self._tensor(train_y[bidx], torch.int64)
+                    bx, by = self._place_batch(train_x[bidx], train_y[bidx])
                     params, state, opt_state, cstate, loss, acc = \
                         self.train_step(params, state, opt_state, cstate, bx,
                                         by, drop_gen)
@@ -422,22 +444,31 @@ class Trainer:
             history["acc"].append(ep_acc / ep_n)
             history["val_loss"].append(val_loss)
             history["val_acc"].append(val_acc)
-            for cb in self.epoch_callbacks:
-                cb(epoch, params, state, history)
+            if self.epoch_callbacks:
+                cb_params, cb_state, _ = self._full_trees(params, state)
+                for cb in self.epoch_callbacks:
+                    cb(epoch, cb_params, cb_state, history)
             if writer is not None:
                 writer.scalars(
                     {"loss": history["loss"][-1], "acc": history["acc"][-1],
                      "val_loss": val_loss, "val_acc": val_acc}, epoch)
-            if cfg.log_every and (epoch % cfg.log_every) < ep_stride:
+            if cfg.log_every and self.writes_files \
+                    and (epoch % cfg.log_every) < ep_stride:
                 print(f"epoch {epoch}: loss={history['loss'][-1]:.4f} "
                       f"acc={history['acc'][-1]:.4f} val_loss={val_loss:.4f} "
                       f"val_acc={val_acc:.4f}")
+            # every rank of a mesh reads the same reduced val_loss, so all
+            # take the same branch (a rank-local one would deadlock the next
+            # collective)
             if val_loss < best_val:
                 best_val = val_loss
-                best = (_tree_map(host, params), _tree_map(host, state))
+                full = self._full_trees(
+                    params, state,
+                    opt_state if checkpoint_dir is not None else None)
+                best = _tree_map(host, full[:2])
                 wait = 0
                 if ckpt is not None:
-                    ckpt.save_best(*best, opt_state, epoch, val_loss)
+                    ckpt.save_best(*best, full[2], epoch, val_loss)
             else:
                 # patience counts epochs, whatever each dispatch fuses
                 wait += ep_stride if dr is not None else 1
@@ -447,7 +478,7 @@ class Trainer:
         if writer is not None:
             writer.close()
         if best is None:
-            best = (_tree_map(host, params), _tree_map(host, state))
+            best = snapshot()
         return {
             "params": params,
             "state": state,
@@ -480,6 +511,12 @@ class Trainer:
             raise ValueError(f"TrainConfig.epochs_per_dispatch must be >= 1, "
                              f"got {cfg.epochs_per_dispatch}")
         bs = cfg.batch_size
+        mesh = self.mesh
+        n_data = 1 if mesh is None else mesh.shape["data"]
+        if bs % n_data:
+            raise ValueError(
+                f"device_resident over a {n_data}-rank mesh needs "
+                f"batch_size divisible by it (got {bs})")
         d_tr, n_true = pad_to_multiple(train_x, bs)
         l_tr, _ = pad_to_multiple(train_y, bs)
         d_train = self._tensor(d_tr, torch.float32)
@@ -487,6 +524,7 @@ class Trainer:
         vx = np.asarray(val_x, np.float32)
         vy = np.asarray(val_y, np.int64)
         vb = 1024 if len(vx) >= 1024 else max(8, len(vx))
+        vb = -(-vb // n_data) * n_data
         d_v, _ = pad_to_multiple(vx, vb)
         l_v, _ = pad_to_multiple(vy, vb)
         d_val = self._tensor(d_v, torch.float32)
@@ -537,12 +575,12 @@ class Trainer:
             def make_epoch_fn(e_per_call):
                 return build_epoch_fn(
                     self.model_cfg, self.optimizer, self.constraint,
-                    batch_size=bs, shuffle=cfg.shuffle,
+                    batch_size=bs, shuffle=cfg.shuffle, mesh=mesh,
                     epochs_per_call=e_per_call,
                     reshuffle_inner=cfg.reshuffle_each_epoch)
 
         epoch_fns = {cfg.epochs_per_dispatch: make_epoch_fn(
             cfg.epochs_per_dispatch)}
-        eval_fn = build_eval_fn(self.model_cfg, batch_size=vb)
+        eval_fn = build_eval_fn(self.model_cfg, batch_size=vb, mesh=mesh)
         return (epoch_fns, make_epoch_fn, eval_fn, d_train, l_train, n_true,
                 d_val, l_val, len(vx), "fused" if fused else "plain")

@@ -133,7 +133,21 @@ which raises on failure (the exit code is then non-zero):
            epoch), each seed's test accuracy, every run's store through
            `evaluate`, fused run r against its solo K3 fit; then on the
            train phase's full split the batched plain epoch against the
-           loop of solo plain epochs after one epoch, both timed;
+           loop of solo plain epochs after one epoch, both timed; K3's parity
+           check against the plain epoch over epochs of 8, 16, 32 and 64
+           steps on fresh steady tones and on the bursts (the BN
+           running-mean gap beside its bar, a reading);
+  parallel the parallel slice on the one card: a one-rank world over NCCL
+           (DataParallelTrainer's digit-recipe steps bit for bit
+           `Trainer`'s, K2 once a step); a world of two gloo ranks sharing
+           the card (`parallel/launch.py::run_ranks`): the dry-run oracles
+           of `parallel/dryrun.py` (data-parallel and tensor-parallel steps
+           and a device-resident data-parallel fit against the single-device
+           ones, toy and digit recipe, bf16, the runs-sharded multi-run),
+           each error beside its bar, K2 launching in every rank; then
+           `train --data-parallel` and `train-multi --runs-mesh` under
+           `torchrun --nproc_per_node 2` (gloo) against the single-process
+           commands. Correctness on one card, not scaling;
   profile  `profile` through `cli.main`: trace.json names K1's and K2's
            kernels, K2 launches once a step, K1 twice;
   frontend_alt every `Frontend` backend at both presets: against the f64
@@ -2976,9 +2990,61 @@ def write_artifacts(out, splits):
     return out
 
 
+def parity_by_steps(dev, fe, split, cfg, batch, steps, card, draws=2):
+    """K3's parity check against the plain epoch (`epoch_parity_vs_plain`)
+    on epochs of each length in `steps`, on fresh steady tones (made with
+    K1, standardized on themselves) and on the train phase's voiced bursts
+    (its split, rows taken in a seeded order, again from the start where an
+    epoch needs more rows): the layer-0 BN running-mean gap beside its 6e-3
+    bar, a reading. Each of `draws` draws makes its own tones and burst
+    order and seeds the check's init and permutation afresh (draw 0: the
+    check's own seeds, the bursts in split order)."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+    n = max(steps) * batch
+    bursts_x, bursts_y = split["train"]
+    out = {}
+    for d in range(draws):
+        lab = np.random.default_rng(SEED + 95 + 10 * d).integers(0, 10, n)
+        tones = np.concatenate([
+            fe.flat(steady_tone_waves(lab[i: i + 1024],
+                                      SEED + 9500 + 100000 * d + i, dev))
+            .cpu().numpy() for i in range(0, n, 1024)])
+        tones = standardize_fit_all(tones, tones[:0], tones[:0])[0]
+        order = (np.arange(len(bursts_x)) if d == 0 else
+                 np.random.default_rng(SEED + 97 + d).permutation(
+                     len(bursts_x)))
+        idx = np.resize(order, n)
+        corpora = {"steady tones": (tones, lab),
+                   "voiced bursts": (bursts_x[idx], bursts_y[idx])}
+        seeds = (7 + d, 3 + d)
+        for name, (x, y) in corpora.items():
+            data = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+                dev)
+            labels = torch.from_numpy(np.asarray(y, np.int64)).to(dev)
+            for k in steps:
+                rows = k * batch
+                gate = ct.epoch_parity_vs_plain(cfg, batch, data[:rows],
+                                                labels[:rows], rows,
+                                                seeds=seeds)
+                out[f"{name}/{k}/draw{d}"] = gate
+                print(f"K3 parity by epoch length ({name}, draw {d}, {k} "
+                      f"steps of {batch}): BN running-mean gap "
+                      f"{gate['max_dmu']:.3e} (bar {gate['tol_bn_mean']:g}),"
+                      f" params {gate['max_dw']:.3e} (bar "
+                      f"{gate['tol_param']:g}), loss {gate['dloss']:.3e}; "
+                      f"{'pass' if gate['ok'] else 'FAIL'} ({card})",
+                      flush=True)
+    return out
+
+
 def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
                       sizes=(8192, 2048, 2048), epochs=48, per_dispatch=8,
-                      hold_epochs=4, batch=512, reps=1):
+                      hold_epochs=4, batch=512, reps=1,
+                      f9_steps=(8, 16, 32, 64)):
     """`train-multi` through the CLI. (a) On steady-tone features made with
     K1: R = len(seeds) runs of digit_constrained (simple_norm rho 0.1) on the
     plain backend (the batched program; K2 once per run a step) and on the
@@ -3092,6 +3158,8 @@ def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
           f"steady-tone features (a reading; Trainer.fit refuses K3 where it "
           f"fails): {gate} ({card})", flush=True)
     out["k3_parity_on_tones"] = gate
+    out["k3_parity_by_steps"] = parity_by_steps(dev, fe, split, cfg, batch,
+                                                f9_steps, card)
 
     # (b) fused run r against its solo K3 fit, on the train phase's split
     (tr_x, tr_y), (va_x, va_y) = split["train"], split["val"]
@@ -3197,6 +3265,289 @@ def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
                               b_ms, "loop_ms_per_run_epoch": l_ms}
     out["walls_s"] = {k: round(v, 3) for k, v in walls.items()}
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def parallel_rank(device, batch, warmup, timed):
+    """What each rank of the phase's gloo world runs: the dry-run oracles
+    (`parallel/dryrun.py`, K2's launches counted for each parallel path in
+    the rank), then `warmup` + `timed` data-parallel steps of the digit
+    recipe, the timed ones by CUDA events (`_step_times`)."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig
+    from asr_using_robust_nn_tpu_torch.parallel import (
+        DataParallelTrainer, data_mesh)
+    from asr_using_robust_nn_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+    from asr_using_robust_nn_tpu_torch.train.trainer import TrainConfig
+
+    dev = torch.device(device)
+    report = dryrun_multichip(dev)
+    cfg = MLPConfig.digit_constrained()
+    con = make_simple_norm_constraint(0.1)
+    dp = DataParallelTrainer(cfg, data_mesh(), TrainConfig(batch_size=batch),
+                             constraint=con.apply, device=dev)
+    timing = _step_times([dp], cfg, con, dev, warmup + timed, batch,
+                         warmup)[0]
+    report["dp_step_ms"] = timing["ms"]
+    report["k2"]["timed_dp_steps"] = {"launches": timing["k2_launches"],
+                                      "projections": warmup + timed}
+    return report
+
+
+def _step_times(trainers, cfg, con, dev, steps, batch, warmup):
+    """`steps` constrained digit-recipe steps of each trainer from one
+    seeded init on the same seeded batches, interleaved (step i of every
+    trainer, then step i + 1), each timed by CUDA events (the host clock on
+    the CPU) -> for each trainer {"params": final, "losses", "ms": the
+    median, 10th and 90th percentile of the steps after the first
+    `warmup`, "k2_launches": K2's launches during its steps}."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+
+    rng = np.random.default_rng(SEED + 120)
+    xs = torch.from_numpy(rng.standard_normal(
+        (steps, batch, cfg.in_dim)).astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, cfg.n_classes,
+                                       (steps, batch))).to(dev)
+    runs = []
+    for t in trainers:
+        p, s = init_mlp(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        runs.append({"st": [p, s, t.optimizer.init(p), con.init(p)],
+                     "gen": torch.Generator(device=dev).manual_seed(SEED + 1),
+                     "losses": [], "times": [], "k2_launches": 0})
+    for i in range(steps):
+        for t, r in zip(trainers, runs):
+            k2 = product_spectral_norm_cuda.launches
+            if dev.type == "cuda":
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            else:
+                t0 = time.perf_counter()
+            *r["st"], loss, _ = t.train_step(*r["st"], xs[i], ys[i],
+                                             r["gen"])
+            if dev.type == "cuda":
+                e1.record()
+                torch.cuda.synchronize()
+                r["times"].append(e0.elapsed_time(e1))
+            else:
+                r["times"].append((time.perf_counter() - t0) * 1e3)
+            r["k2_launches"] += product_spectral_norm_cuda.launches - k2
+            r["losses"].append(float(loss))
+    timed = slice(warmup, None) if steps > warmup else slice(None)
+    return [{"params": r["st"][0], "losses": r["losses"],
+             "k2_launches": r["k2_launches"],
+             "ms": dict(zip(("p50", "p10", "p90"), (float(v) for v in
+                        np.percentile(r["times"][timed], [50, 10, 90])))),
+             "timed_steps": len(r["times"][timed])} for r in runs]
+
+
+def _ms(t) -> str:
+    return f"{t['p50']:.3f} ms (p10 {t['p10']:.3f}, p90 {t['p90']:.3f})"
+
+
+def parallel_phase(dev, split, root, card=None, steps=3, batch=512, world=2,
+                   sizes=(4096, 1024, 1024), epochs=2, timeout=300, warmup=2,
+                   timed=24):
+    """The parallel slice on one card. (1) A one-rank world over NCCL on
+    `dev` (gloo on the CPU): `steps` DataParallelTrainer steps of the digit
+    recipe (simple_norm rho 0.1, dropout 0.1) against `Trainer`'s on the
+    same card, within 1e-6 (bit for bit is expected: the rank holds the
+    whole batch), K2 once a DP step; then `warmup` + `timed` steps of each,
+    interleaved, timed. (2) A world of `world` gloo ranks, all on `dev`,
+    through `run_ranks`: the dry-run oracles (each error beside its
+    tolerance), each parallel path's K2 launches in every rank equal to its
+    projections (counted over that path's call alone), and `timed` DP steps
+    timed after `warmup`. (3) `train --data-parallel` and
+    `train-multi --runs-mesh` under `torchrun --nproc_per_node world`
+    (gloo) on artifacts from the train phase's split, against the
+    single-process commands: the final val accuracy within one val row,
+    each run's best val_loss within rtol 1e-4. Two ranks sharing one card
+    through host-staged gloo show correctness, not scaling."""
+    import torch
+    import torch.distributed as dist
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.parallel import (
+        DataParallelTrainer, data_mesh, maybe_init_distributed)
+    from asr_using_robust_nn_tpu_torch.parallel.launch import (
+        free_port, run_ranks)
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, _tree_leaves)
+
+    card = card or card_line()
+    on_card = dev.type == "cuda"
+    clock = "CUDA events" if on_card else "host clock"
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (1) world 1: NCCL initializes and runs a collective on the card
+    backend = "nccl" if on_card else "gloo"
+    maybe_init_distributed(coordinator=f"127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0, backend=backend,
+                           device=dev)
+    try:
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        cfg = MLPConfig.digit_constrained()
+        con = make_simple_norm_constraint(0.1)
+        tcfg = TrainConfig(batch_size=batch)
+        dp = DataParallelTrainer(cfg, data_mesh(), tcfg,
+                                 constraint=con.apply, device=dev)
+        one_dev = Trainer(cfg, tcfg, constraint=con.apply, device=dev)
+        # parity: `steps` steps of each; then both timed, interleaved
+        product_spectral_norm_cuda.launches = 0  # the DP steps start here
+        got = _step_times([dp], cfg, con, dev, steps, batch, 0)[0]
+        k2_dp = product_spectral_norm_cuda.launches  # ... and end here
+        want = _step_times([one_dev], cfg, con, dev, steps, batch, 0)[0]
+        t_dp, t_1 = _step_times([dp, one_dev], cfg, con, dev,
+                                warmup + timed, batch, warmup)
+        backend_seen = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    p_dp, p_1 = got["params"], want["params"]
+    err = max(float(torch.max(torch.abs(a - b)))
+              for a, b in zip(_tree_leaves(p_dp), _tree_leaves(p_1)))
+    bitwise = all(torch.equal(a, b) for a, b in zip(_tree_leaves(p_dp),
+                                                    _tree_leaves(p_1)))
+    print(f"parallel: world 1 over {backend_seen} on {dev}: {steps} "
+          f"data-parallel steps of the digit recipe vs Trainer: max |param "
+          f"diff| {err:.3e} (bar 1e-6), bit for bit: "
+          f"{'yes' if bitwise else 'no'}; losses {got['losses']} vs "
+          f"{want['losses']}; K2 launches {k2_dp} (one a step); "
+          f"{t_dp['timed_steps']} steps each after {warmup}, interleaved: "
+          f"DP {_ms(t_dp['ms'])}, Trainer {_ms(t_1['ms'])}, {clock}; K2 "
+          f"launches in the timed DP run {t_dp['k2_launches']} ({card})",
+          flush=True)
+    check(float(one) == 1.0 and err <= 1e-6, "world-1 data-parallel steps "
+          f"differ from Trainer's by {err}")
+    if on_card:
+        check(backend_seen == "nccl" and k2_dp == steps
+              and t_dp["k2_launches"] == warmup + timed,
+              f"world 1: backend {backend_seen}, K2 launches {k2_dp} and "
+              f"{t_dp['k2_launches']}")
+    out["world1"] = {"backend": backend_seen, "max_abs_err": err,
+                     "bitwise": bitwise, "dp_step_ms": t_dp["ms"],
+                     "trainer_step_ms": t_1["ms"],
+                     "timed_steps": t_dp["timed_steps"], "k2_launches": k2_dp,
+                     "timed_k2_launches": t_dp["k2_launches"]}
+
+    # (2) world of `world` gloo ranks on this device
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, world, "gloo", str(dev),
+                      args=(str(dev), batch, warmup, timed), timeout=timeout,
+                      threads=None)
+    world_s = time.perf_counter() - t0
+    for r in ranks:
+        for case in ("toy", "digit"):
+            got = r[case]
+            print(f"parallel: rank {r['rank']}/{world} dry run {case}: "
+                  + ", ".join(f"{k} {got[k]:.3e} (bar "
+                              f"{(10 if 'loss' in k else 1) * got['tol']:g})"
+                              for k in got if k != "tol"), flush=True)
+        mrun = r["multi_run"]
+        print(f"parallel: rank {r['rank']}/{world} bf16 DP loss "
+              f"{r['bf16_loss']:.4f} (finite); runs-sharded multi-run "
+              f"({mrun['runs']} runs) best_val_loss rel "
+              f"{mrun['best_val_loss_rel']:.3e} "
+              f"(bar {mrun['rtol']:g}), epochs_run equal "
+              f"{mrun['epochs_run_equal']}, params bit for bit "
+              f"{mrun['params_equal']}; K2 launches / projections by path: "
+              + ", ".join(f"{k} {v['launches']}/{v['projections']}"
+                          for k, v in r["k2"].items())
+              + f"; DP step {_ms(r['dp_step_ms'])} over {timed} steps after "
+              f"{warmup} ({clock}, {world} ranks sharing {dev} over gloo; "
+              f"{card})", flush=True)
+        if on_card:
+            check(all(v["launches"] == v["projections"]
+                      for v in r["k2"].values()),
+                  f"rank {r['rank']}: a parallel path's K2 launches differ "
+                  f"from its projections: {r['k2']}")
+    out["world"] = {"ranks": world, "seconds": world_s, "reports": ranks}
+
+    # (3) the two commands under torchrun
+    art = write_artifacts(os.path.join(root, "parallel_art"), {
+        "train": tuple(a[:sizes[0]] for a in split["train"]),
+        "dev": tuple(a[:sizes[1]] for a in split["val"]),
+        "test": tuple(a[:sizes[2]] for a in split["test"])})
+    common = ["--task", "digit", "--variant", "constrained", "--data", art,
+              "--epochs", str(epochs), "--batch-size", str(batch),
+              "--no-standardize"]
+    walls = {}
+
+    def torchrun(name, argv):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(world), "--master_addr", "127.0.0.1",
+               "--master_port", str(free_port()), "-m",
+               "asr_using_robust_nn_tpu_torch.cli.main", *argv,
+               "--dist-backend", "gloo"]
+        if not on_card:
+            cmd += ["--device", str(dev)]
+        env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True,
+                             text=True, timeout=timeout)
+        walls[name] = time.perf_counter() - t0
+        print(f"parallel: torchrun x{world} `{' '.join(argv[:3])} ...` exit "
+              f"{res.returncode} in {walls[name]:.2f} s ({card})",
+              flush=True)
+        check(res.returncode == 0, f"torchrun {name}: exit "
+              f"{res.returncode}; stderr: {res.stderr[-3000:]}")
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+        check(len(lines) == 1, f"torchrun {name}: rank 0 alone prints one "
+              f"JSON line, got {len(lines)}")
+        return json.loads(lines[0])
+
+    def last_val_acc(metrics_dir):
+        rows = [json.loads(ln) for ln in open(
+            os.path.join(metrics_dir, "metrics.jsonl"))]
+        return [r["value"] for r in rows if r["tag"] == "val_acc"][-1]
+
+    train = ["train", *common, "--constraint", "simple", "--log-every", "0"]
+    m1, m2 = (os.path.join(root, f"parallel_metrics_{k}") for k in "12")
+    run_cli(dev, "parallel_train_single", [
+        *train, "--ckpt", os.path.join(root, "par_ck1"), "--metrics-dir",
+        m1], card, walls)
+    torchrun("parallel_train_dp", [
+        *train, "--data-parallel", "--ckpt", os.path.join(root, "par_ck2"),
+        "--metrics-dir", m2])
+    acc1, acc2 = last_val_acc(m1), last_val_acc(m2)
+    print(f"parallel: train --data-parallel ({world} ranks) final val "
+          f"accuracy {acc2:.6f} vs single-process {acc1:.6f} (bar: one val "
+          f"row, {1 / sizes[1]:.6f})", flush=True)
+    check(abs(acc1 - acc2) <= 1 / sizes[1] + 1e-9, "train --data-parallel "
+          "final val accuracy differs from train's")
+    multi = ["train-multi", *common, "--seeds", "0,1,2,3",
+             "--epochs-per-dispatch", "1"]
+    text, _ = run_cli(dev, "parallel_train_multi_single", [
+        *multi, "--ckpt", os.path.join(root, "par_tm1")], card, walls)
+    want = {os.path.basename(r["ckpt"]): r["best_val_loss"]
+            for r in last_json(text)["runs"]}
+    got = {os.path.basename(r["ckpt"]): r["best_val_loss"]
+           for r in torchrun("parallel_train_multi_mesh", [
+               *multi, "--runs-mesh", "--ckpt",
+               os.path.join(root, "par_tm2")])["runs"]}
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    print(f"parallel: train-multi --runs-mesh ({world} ranks, 4 runs) "
+          f"best val_loss rel gap {rel:.3e} vs single-process (bar 1e-4)",
+          flush=True)
+    check(sorted(got) == sorted(want) and rel <= 1e-4, "train-multi "
+          "--runs-mesh differs from train-multi")
+    out["commands"] = {"val_acc": [acc1, acc2], "multi_rel": rel,
+                       "walls_s": {k: round(v, 3) for k, v in walls.items()}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel: phase wall {out['phase_s']:.1f} s ({card})",
+          flush=True)
     return out
 
 
@@ -4023,6 +4374,7 @@ def main() -> int:
         atk = timed("attack", attack_phase, dev, prep, root, card=card)
         tmulti = timed("train_multi", train_multi_phase, dev, split, root,
                        card=card)
+        par = timed("parallel", parallel_phase, dev, split, root, card=card)
         prof = timed("profile", profile_phase, dev, root, card=card)
     falt = timed("frontend_alt", frontend_alt_phase, dev, card=card)
     timing = timed("timing", timing_phase, dev, serve.pop("engine"),
@@ -4098,6 +4450,12 @@ def main() -> int:
         "cli_launches": cli["k2_launches"],
         "train_multi_launches": tmulti["plain"]["k2_launches"],
         "profile_launches": prof["k2_launches"],
+        "parallel_world1_launches": par["world1"]["k2_launches"],
+        "parallel_world1_timed_launches":
+            par["world1"]["timed_k2_launches"],
+        "parallel_rank_launches": [
+            {k: v["launches"] for k, v in r["k2"].items()}
+            for r in par["world"]["reports"]],
         "max_abs_err": k2["max_abs_err"],
         "sigma_rel_err": k2["sigma_rel_err"],
         "tolerance": "vs twin: sigma rtol 5e-3, u atol 5e-3 (bf16); 1e-4 "
@@ -4231,6 +4589,7 @@ def main() -> int:
         "cli": cli,
         "attack": atk,
         "train_multi": tmulti,
+        "parallel": par,
         "profile": prof,
         "frontend_alt": falt,
         "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"},

@@ -173,9 +173,29 @@ def test_resume_without_checkpoint_errors(artifacts, corpus, capsys):
     assert not (corpus / "no_such_ck").exists()
 
 
-def test_data_parallel_not_ported(artifacts, corpus):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        _train(artifacts, corpus / "ck_dp", "--data-parallel")
+def test_data_parallel_not_ported(artifacts, corpus, capsys):
+    """`train --data-parallel` as one process trains on a one-rank mesh
+    what `train` trains, bit for bit (the rank holds every row, so the
+    step is the single-device one); its evaluation sums per row, so the
+    val and test losses agree within 1e-6 and the accuracy exactly.
+    tests/test_torch_distributed.py runs the command on 2 ranks."""
+    assert _train(artifacts, corpus / "ck_1", "--data-parallel") == 0
+    got = _last_json(capsys)
+    assert _train(artifacts, corpus / "ck_dp0") == 0
+    want = _last_json(capsys)
+    assert got["epochs_run"] == want["epochs_run"]
+    for k in ("best_val_loss", "test_loss"):
+        assert abs(got[k] - want[k]) <= 1e-6, k
+    assert got["test_accuracy"] == want["test_accuracy"]
+    meta = [json.loads((corpus / ck / "meta.json").read_text())
+            for ck in ("ck_1", "ck_dp0")]
+    assert meta[0]["epoch"] == meta[1]["epoch"]
+    cfg = model_cfg_for("digit", "constrained")
+    a = np.concatenate([v.ravel() for layer in load_model(
+        corpus / "ck_1", cfg)[0]["layers"] for v in layer.values()])
+    b = np.concatenate([v.ravel() for layer in load_model(
+        corpus / "ck_dp0", cfg)[0]["layers"] for v in layer.values()])
+    np.testing.assert_array_equal(a, b)
 
 
 def test_train_export_h5_and_evaluate_from_it(artifacts, corpus, capsys):

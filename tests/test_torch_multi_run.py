@@ -30,7 +30,8 @@ from asr_using_robust_nn_tpu_torch.models.convert import (
 from asr_using_robust_nn_tpu_torch.models.mlp import (
     MLPConfig, dense_kernels, init_mlp)
 from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
-from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
+from asr_using_robust_nn_tpu_torch.parallel.mesh import (data_mesh,
+                                                         pad_to_multiple)
 from asr_using_robust_nn_tpu_torch.train.epoch_scan import build_epoch_fn
 from asr_using_robust_nn_tpu_torch.train.multi_run import (
     build_multi_run_epoch_fn, build_multi_run_eval_fn,
@@ -308,8 +309,9 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="epochs_per_dispatch"):
         fit_multi_run(CFG, TrainConfig(batch_size=BS, epochs_per_dispatch=0),
                       x, y, xv, yv, [0, 1], **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fit_multi_run(CFG, tcfg, x, y, xv, yv, [0, 1], mesh=object(), **kw)
+    with pytest.raises(ValueError, match="single-device"):
+        fit_multi_run(CFG, tcfg, x, y, xv, yv, [0, 1], mesh=data_mesh(),
+                      epoch_backend="fused", **kw)
 
 
 def test_fused_backend_refuses_unsupported():

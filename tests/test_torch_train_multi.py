@@ -383,18 +383,36 @@ def test_train_multi_fused_backend_at_one_rho(artifacts, tmp_path,
     (["--seeds", "0", "--rhos", "x"], "comma-separated floats"),
     (["--seeds", "0", "--rhos", "0.1", "--variant", "unconstrained"],
      "constrained"),
-    (["--seeds", "0", "--runs-mesh"], "item 10"),
 ])
 def test_train_multi_argument_errors(argv, needle, artifacts, capsys):
-    """The JAX command's exit-2 argument errors (tests/test_cli.py), and
-    `--runs-mesh`, which waits for the parallel slice."""
+    """The JAX command's exit-2 argument errors (tests/test_cli.py)."""
     base = ["train-multi", "--task", "digit", "--data", str(artifacts),
             "--ckpt", "/nonexistent/x"]
     assert main(base + argv + ["--device", "cpu"]) == 2
     assert needle in capsys.readouterr().err
-    if needle != "item 10":
-        assert jmain(base + argv) == 2
-        assert needle in capsys.readouterr().err
+    assert jmain(base + argv) == 2
+    assert needle in capsys.readouterr().err
+
+
+def test_train_multi_runs_mesh_as_one_process(artifacts, tmp_path, capsys):
+    """`--runs-mesh` as one process: a one-rank mesh holding every run, the
+    stores and results of the plain command bit for bit; with the fused
+    backend it exits 2. tests/test_torch_distributed.py splits the runs
+    over 2 ranks."""
+    base = ["train-multi", "--task", "digit", "--data", str(artifacts),
+            "--seeds", "1,2", "--epochs", "2", "--batch-size", "64",
+            "--device", "cpu"]
+    assert main(base + ["--ckpt", str(tmp_path / "a")]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert main(base + ["--ckpt", str(tmp_path / "b"), "--runs-mesh"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for g, w in zip(got["runs"], want["runs"]):
+        assert {k: v for k, v in g.items() if k != "ckpt"} == {
+            k: v for k, v in w.items() if k != "ckpt"}
+        assert os.path.basename(g["ckpt"]) == os.path.basename(w["ckpt"])
+    assert main(base + ["--ckpt", str(tmp_path / "c"), "--runs-mesh",
+                        "--epoch-backend", "fused"]) == 2
+    assert "--runs-mesh" in capsys.readouterr().err
 
 
 def test_train_multi_needs_artifacts(tmp_path, capsys):
