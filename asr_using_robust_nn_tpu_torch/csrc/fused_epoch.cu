@@ -44,9 +44,13 @@
 //    one exchange -> dz -> ReLU mask -> dzb in bf16 and the db sums by a
 //    second exchange; rank 0 runs Adam on gamma, beta, b (gamma is read
 //    before its update). No fp32 dD ever leaves the SM. The mask compares the
-//    bf16 x^ with the bf16-rounded threshold -mu * sdinv: the Pallas kernel's
-//    fp32 threshold lets about half the dead units (a = 0, whose bf16 x^
-//    rounds above it) pass gradient.
+//    bf16 x^ with the bf16-rounded threshold -mu * sdinv, and the forward
+//    stores a live unit's x^ one bf16 step above that threshold where it
+//    would round onto it (xhat_store), so the mask is exactly a > 0. The
+//    Pallas kernel's fp32 threshold lets about half the dead units (a = 0,
+//    whose bf16 x^ rounds above it) pass gradient; a threshold rounded
+//    alone, without xhat_store, drops the gradient of the live units whose
+//    x^ rounds onto it.
 //  * fe_dw_adam: dW fused with Adam + NonNeg + the bf16 copy, split over the
 //    batch across a cluster so that narrow layers still fill SMs, the
 //    block's rows of the master and moments fetched by cp.async while the
@@ -129,6 +133,23 @@ __device__ __forceinline__ uint32_t drop_key(const int* seeds, int step,
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// The bf16 value one step above the bf16 value x.
+__device__ __forceinline__ float bf16_next_up(float x) {
+  const unsigned short b = __bfloat16_as_ushort(__float2bfloat16(x));
+  const unsigned short n =
+      (b & 0x7fff) == 0 ? 1 : ((b & 0x8000) ? b - 1 : b + 1);
+  return __bfloat162float(__ushort_as_bfloat16(n));
+}
+
+// x^ as stored, in bf16 (exactly representable): its rounding, but one
+// step above the bf16 ReLU threshold thr = bf16(-mu * sdinv) where a live
+// unit (a > 0) would round onto it. A dead unit's x^ is the threshold
+// itself, so the backward's mask x^ > thr is exactly a > 0.
+__device__ __forceinline__ float xhat_store(float xh, float a, float thr) {
+  const float r = bf16_round(xh);
+  return (a > 0.f && r <= thr) ? bf16_next_up(r) : r;
 }
 
 // Sum over a block of RT threads; every thread gets the total.
@@ -330,6 +351,8 @@ __global__ void __launch_bounds__(kThreads) fe_fwd_bn(FwdArgs p) {
         if (p.use_bn) {
           xh[q] = (av - mu[q]) * sd[q];
           out[q] = xh[q] * g[q] + bt[q];
+          const float thr = bf16_round(-mu[q] * sd[q]);
+          xh[q] = xhat_store(xh[q], av, thr);
         }
         if (drop) {
           out[q] = keep_unit(km, row, col + q, p.N, p.keep) ? out[q] / p.keep
@@ -698,6 +721,7 @@ fe_bn_fwd(const float* __restrict__ a, int rows, int d,
     muvec[c] = 0.f;
     sdvec[c] = 1.f;
   }
+  const float thr = bf16_round(-mu * sdinv);  // see xhat_store
   const bool drop = keep < 1.f;
   const uint32_t km = drop ? drop_key(seeds, step, layer) : 0u;
   for (int r = ty; r < rows; r += CG) {
@@ -707,6 +731,7 @@ fe_bn_fwd(const float* __restrict__ a, int rows, int d,
     if (use_bn) {
       xh = (av - mu) * sdinv;
       out = xh * g + bt;
+      xh = xhat_store(xh, av, thr);
     }
     xhat[i] = __float2bfloat16(xh);
     if (drop) out = keep_unit(km, r, c, d, keep) ? out / keep : 0.f;

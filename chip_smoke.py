@@ -150,6 +150,21 @@ which raises on failure (the exit code is then non-zero):
            commands. Correctness on one card, not scaling;
   profile  `profile` through `cli.main`: trace.json names K1's and K2's
            kernels, K2 launches once a step, K1 twice;
+  study    the thesis study through `examples/` and `baselines/` entry
+           points: the synthetic digit study (60 files a class, rho 0.1,
+           full width, both fits on K3; 150 unconstrained and 600
+           constrained epochs), the demo (streaming: K2 once a constrained
+           step), the speaker study at 100 / 200 epochs (depth cut; full
+           width, K1 once an audio sweep point; or, where the trainer's
+           parity gate refuses K3 for the constrained recipe (F9), that
+           verdict held to the BN-mean bar alone) and the accuracy study's
+           framework arm on digit corpus seed 0 at the archived protocol (K3
+           a run, train seeds 1000-1003) within the F3 margin of the archived
+           JAX arm's seed-mean clean accuracy, its K1 features against the
+           f64 oracle within the archive's own gap; clean accuracy, product norm,
+           Lipschitz ordering and finite sweeps checked for both studies; K3
+           replays = epochs run + the parity gates run; each gate's BN-mean
+           gap printed (F9);
   frontend_alt every `Frontend` backend at both presets: against the f64
            oracle on noise rows at its scheme's bar, against the goldens
            (K1 and what `auto` resolves to held to 5e-4), timed at 1024
@@ -3041,6 +3056,96 @@ def parity_by_steps(dev, fe, split, cfg, batch, steps, card, draws=2):
     return out
 
 
+def bn_mean_three_ways(dev, cfg, batch, data, labels, n_true, seeds):
+    """The layer-0 BN running mean after one dropout-0 epoch from the parity
+    check's init and permutation (`epoch_parity_vs_plain` with `seeds`),
+    by K3, by its plain-PyTorch twin `fused_epoch_plain` on the same batches
+    and by the plain bf16 epoch -> the three largest gaps between them."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import (
+        make_simple_norm_constraint)
+    from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.train.epoch_scan import (
+        build_epoch_fn, shuffle_batches)
+    from asr_using_robust_nn_tpu_torch.train.trainer import (
+        _generator, adam_optimizer)
+
+    cfg0 = dataclasses.replace(cfg, dropout=(0.0,) * len(cfg.dropout))
+    params, state = init_mlp(cfg0, _generator(dev, seeds[0]), device=dev)
+    spec = ct.FusedStepSpec(cfg=cfg0, batch=batch, rho=0.1, pi_iters=4)
+    fs_k3, fs_twin = (ct.pack_state(spec, params, state) for _ in range(2))
+    con = make_simple_norm_constraint(0.1, n_iter=4, pi_backend="plain")
+    opt = adam_optimizer(1e-3, "float32")
+    ep_plain = build_epoch_fn(cfg0.with_bf16(), opt, constraint=con.apply,
+                              batch_size=batch, epochs_per_call=1,
+                              reshuffle_inner=False)
+    plain = ep_plain(params, state, opt.init(params), con.init(params), data,
+                     labels, _generator(dev, seeds[1]), None, n_true)[1]
+    feats = ct.pad_features(spec, data)
+    ep = ct.build_fused_epoch_fn(spec, epochs_per_call=1,
+                                 reshuffle_inner=False)
+    k3 = ep(fs_k3, feats, labels, _generator(dev, seeds[1]), None, n_true)[0]
+    xs, ys, ws = shuffle_batches(feats, labels, batch, True,
+                                 _generator(dev, seeds[1]), n_true)
+    zeros = torch.zeros(xs.shape[0], dtype=torch.int32, device=dev)
+    twin = ct.fused_epoch_plain(spec, fs_twin, xs, ys[..., None],
+                                ws[..., None], zeros)[0]
+    mu = {"k3": ct.unpack_params(spec, k3)[1]["layers"][0]["mean"],
+          "twin": ct.unpack_params(spec, twin)[1]["layers"][0]["mean"],
+          "plain": plain["layers"][0]["mean"]}
+    return {f"{a}_vs_{b}": float(torch.max(torch.abs(mu[a] - mu[b])))
+            for a, b in (("k3", "twin"), ("twin", "plain"), ("k3", "plain"))}
+
+
+def speaker_gate_readings(dev, splits, card, batch=64,
+                          steps=(1, 2, 4, 7, 10, 14),
+                          draws=((7, 3), (8, 4), (9, 5))):
+    """F9 on the speaker study's corpus: K3's parity check against the plain
+    epoch (`epoch_parity_vs_plain`) for `speaker_constrained` on the study's
+    standardized train rows, on the epoch's first k batches for each k in
+    `steps` and each draw of the check's (init, permutation) seeds (the
+    first is the check's own), and at the whole epoch the three ways apart
+    of K3, its twin and the plain epoch (`bn_mean_three_ways`). Readings;
+    each check and each three-way reading replays K3 once."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.data.pipeline import (
+        standardize_fit_all)
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
+
+    cfg = MLPConfig.speaker_constrained()
+    tr = standardize_fit_all(splits.train_data, splits.dev_data,
+                             splits.test_data)[0]
+    d, n = pad_to_multiple(tr.astype(np.float32), batch)
+    lab, _ = pad_to_multiple(np.asarray(splits.train_label, np.int64), batch)
+    d = torch.from_numpy(d).to(dev)
+    lab = torch.from_numpy(lab).to(dev)
+    out = {"steps": [], "three_ways": [], "replays": 0}
+    for seeds in draws:
+        gaps = []
+        for k in steps:
+            rows = min(k * batch, d.shape[0])
+            g = ct.epoch_parity_vs_plain(cfg, batch, d[:rows], lab[:rows],
+                                         min(rows, n), seeds=seeds)
+            out["steps"].append(dict(seeds=seeds, steps=k, **g))
+            gaps.append(g["max_dmu"])
+        row = dict(seeds=seeds, **bn_mean_three_ways(dev, cfg, batch, d, lab,
+                                                     n, seeds))
+        out["three_ways"].append(row)
+        out["replays"] += len(steps) + 1
+        print(f"F9 speaker corpus, draw {seeds}: layer-0 BN mean gap of K3 "
+              f"against the plain epoch after {list(steps)} steps of "
+              f"{batch}: {[f'{x:.2e}' for x in gaps]} (bar 6e-3); at "
+              f"{steps[-1]} steps K3-twin {row['k3_vs_twin']:.2e}, "
+              f"twin-plain {row['twin_vs_plain']:.2e}, K3-plain "
+              f"{row['k3_vs_plain']:.2e} ({card})", flush=True)
+    return out
+
+
 def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
                       sizes=(8192, 2048, 2048), epochs=48, per_dispatch=8,
                       hold_epochs=4, batch=512, reps=1,
@@ -3589,6 +3694,253 @@ def profile_phase(dev, root, steps=5, card=None):
     return {"wall_s": walls["profile"], "k1_launches": k1,
             "k2_launches": k2, "trace_events": len(events),
             "kernels_named": named}
+
+
+def check_study(name, res, models, rho, n_test, sweeps, lip_key):
+    """A robustness study's bars: the unconstrained clean accuracy >= 0.5;
+    the constrained one above chance by four standard errors; the
+    constrained product norm in [rho/1.5, 1.5 rho]; the constrained
+    Lipschitz estimate under the unconstrained one; one finite accuracy a
+    strength for both models in every sweep; every fit on K3."""
+    n_classes = models["constrained"]["cfg"].n_classes
+    chance = 1.0 / n_classes
+    bar_c = chance + 4 * np.sqrt(chance * (1 - chance) / n_test)
+    ws = [p["w"].detach().cpu().numpy()
+          for p in models["constrained"]["params"]["layers"]]
+    sigma = product_norm(ws)
+    clean, lip = res["clean"], res[lip_key]
+    print(f"study {name}: clean unconstrained {clean['unconstrained']:.4f} "
+          f"constrained {clean['constrained']:.4f} (bars 0.5 and "
+          f"{bar_c:.4f}, {n_test} test rows); Lipschitz {lip}; median margin "
+          f"{res['median_margin']}; product norm {sigma:.4f} (rho {rho}); "
+          f"epochs {[m['result']['epochs_run'] for m in models.values()]} on "
+          f"{[m['result']['epoch_backend'] for m in models.values()]}",
+          flush=True)
+    check(clean["unconstrained"] >= 0.5,
+          f"{name}: unconstrained clean {clean['unconstrained']}")
+    check(clean["constrained"] > bar_c,
+          f"{name}: constrained clean {clean['constrained']} <= {bar_c}")
+    check(rho / 1.5 <= sigma <= 1.5 * rho,
+          f"{name}: product norm {sigma} outside [rho/1.5, 1.5 rho]")
+    check(lip["constrained"] < lip["unconstrained"], f"{name}: {lip}")
+    for atk, strengths in sweeps:
+        cur = res["curves"][atk]
+        for side in ("accuracy_constrained", "accuracy_unconstrained"):
+            check(len(cur[side]) == len(strengths)
+                  and np.all(np.isfinite(cur[side])),
+                  f"{name} {atk} {side}: {cur[side]}")
+    for m in models.values():
+        check(m["result"]["epoch_backend"] == "fused",
+              f"{name}: a fit ran {m['result']['epoch_backend']}")
+    return sigma
+
+
+def study_phase(dev, root, card=None, syn_files=60, syn_epochs=(150, 600),
+                spk_epochs=(100, 200), speakers=20, recordings=30,
+                acc_files=240, acc_epochs=300, acc_patience=60):
+    """The thesis study on the card, through the entry points of
+    `examples/` and `baselines/`: the synthetic digit study at the JAX
+    script's defaults but for the constrained recipe's depth (`syn_epochs`
+    = unconstrained, constrained: at 150 constrained epochs neither package
+    clears the bar of four standard errors above chance, see PERF.md), the
+    demo (streaming fits: K2 a constrained step), the speaker study with its
+    depth cut to `spk_epochs` after F9's readings on its corpus
+    (`speaker_gate_readings`; a refusal of K3 by the trainer's parity gate
+    fails the script), and the accuracy study's framework arm on digit
+    corpus seed 0 at the archived protocol (train seeds 1000-1003, K3 a
+    run), held against the archived JAX framework arm by the F3 rule. The
+    speaker corpus and the accuracy arm's corpus are written by two spawned
+    processes while the card runs the first two. K1, K2 and K3 are counted over the phase: K3 replays equal
+    the epochs the fits ran plus one for each parity gate that ran (the gate
+    table is cleared before each study, as a fresh process starts); K1
+    launches once a speaker audio sweep point; K2 once a demo step."""
+    import argparse
+    import multiprocessing
+    import shutil
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.baselines import accuracy_study as acc
+    from asr_using_robust_nn_tpu_torch.data.pipeline import build_dataset
+    from asr_using_robust_nn_tpu_torch.examples import (
+        demo_synthetic, hard_corpus, robustness_study_speaker as spk,
+        robustness_study_synthetic as syn)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
+        product_spectral_norm_cuda)
+    from asr_using_robust_nn_tpu_torch.ops.cuda_train import (
+        build_fused_epoch_call)
+    from asr_using_robust_nn_tpu_torch.train import trainer as trainer_mod
+
+    card = card or card_line()
+    base = os.path.join(root, "study")
+    spk_root = os.path.join(base, "speaker")
+    acc_args = argparse.Namespace(
+        **{**acc.ARCHIVE_KNOBS, "files_per_class": acc_files},
+        workdir=os.path.join(base, "accuracy"), train_seeds=4,
+        digit_epochs=acc_epochs, speaker_epochs=150, patience=acc_patience,
+        bf16=False)
+    with open(os.path.join(REPO, "baselines", "accuracy_study.json")) as f:
+        archive = json.load(f)
+    ctx = multiprocessing.get_context("spawn")
+    writers = {
+        "speaker": ctx.Process(target=hard_corpus.make_speaker_corpus,
+                               args=(spk_root,), kwargs=dict(
+                                   n_speakers=speakers, recordings=recordings,
+                                   noise_hi=0.12, formant_jitter=0.04,
+                                   seed=0, sr=22050)),
+        "accuracy": ctx.Process(target=acc.make_task_corpus,
+                                args=("digit", acc_args, 0))}
+    for p in writers.values():
+        p.start()
+    walls, gates, fit_epochs = {}, {}, 0
+    quiet = lambda m: None if m.startswith("  ") else print(m, flush=True)  # noqa: E731
+
+    def wait(name):
+        writers[name].join()
+        check(writers[name].exitcode == 0,
+              f"study: the {name} corpus writer exited "
+              f"{writers[name].exitcode}")
+
+    def new_gates(study, batches):
+        for key, gate in trainer_mod._FUSED_EPOCH_GATE.items():
+            gates[f"{study}/{key[0].in_dim}x{key[0].n_classes}"
+                  f"/batch{key[1]}/rho{key[2]}"] = dict(
+                      gate, steps=batches[key[1]])
+
+    try:
+        mel_power_cuda.launches = 0  # the study path starts here
+        product_spectral_norm_cuda.launches = 0
+        build_fused_epoch_call.launches = 0
+
+        # -- the synthetic digit study at the JAX script's defaults
+        t0 = time.perf_counter()
+        trainer_mod._FUSED_EPOCH_GATE.clear()
+        corpus = syn.make_corpus(os.path.join(base, "synthetic"),
+                                 files_per_class=syn_files, seed=0)
+        splits = build_dataset(corpus, "digit", seed=0, device=dev)
+        s_res, s_models = syn.run_study(
+            splits, rho=0.1, epochs=syn_epochs[0],
+            constrained_epochs=syn_epochs[1], seed=0, device=dev, log=quiet)
+        n_tr = len(splits.train_data)
+        new_gates("synthetic", {256: -(-n_tr // 256), 512: -(-n_tr // 512)})
+        fit_epochs += sum(m["result"]["epochs_run"]
+                          for m in s_models.values())
+        s_sigma = check_study("synthetic", s_res, s_models, 0.1,
+                              len(splits.test_label), syn.SWEEPS, "lipschitz")
+        walls["synthetic"] = time.perf_counter() - t0
+
+        # -- the demo: streaming fits, K2 once a constrained step
+        t0 = time.perf_counter()
+        k2 = product_spectral_norm_cuda.launches
+        check(demo_synthetic.main(["--workdir", os.path.join(base, "demo"),
+                                   "--device", str(dev)]) == 0, "demo")
+        demo_k2 = product_spectral_norm_cuda.launches - k2
+        want_k2 = 60 * -(-int(80 * 0.7) // 16)  # epochs x steps an epoch
+        check(demo_k2 == want_k2, f"demo: K2 {demo_k2}, want {want_k2}")
+        walls["demo"] = time.perf_counter() - t0
+
+        # -- the speaker study, depth cut to spk_epochs, after F9's readings
+        # on its corpus
+        t0 = time.perf_counter()
+        wait("speaker")
+        walls["speaker_corpus_wait"] = time.perf_counter() - t0
+        trainer_mod._FUSED_EPOCH_GATE.clear()
+        splits = build_dataset(os.path.join(spk_root, "data"), "speaker",
+                               seed=0, device=dev)
+        f9 = speaker_gate_readings(dev, splits, card)
+        audio_points = []
+        sweep = spk.blackbox_sweep
+
+        def counted_sweep(attack, *a, **kw):
+            k1 = mel_power_cuda.launches
+            out = sweep(attack, *a, **kw)
+            if attack.endswith("_audio"):
+                audio_points.append((attack, len(out.strengths),
+                                     mel_power_cuda.launches - k1))
+            return out
+
+        spk.blackbox_sweep = counted_sweep
+        try:
+            p_res, p_models = spk.run_study(
+                splits, rho=1.0, epochs=spk_epochs[0],
+                constrained_epochs=spk_epochs[1], seed=0, device=dev,
+                log=quiet)
+        finally:
+            spk.blackbox_sweep = sweep
+        new_gates("speaker", {64: -(-len(splits.train_data) // 64)})
+        fit_epochs += f9["replays"]  # each reading replays K3 once
+        fit_epochs += sum(m["result"]["epochs_run"]
+                          for m in p_models.values())
+        p_sigma = check_study("speaker", p_res, p_models, 1.0,
+                              len(splits.test_label), spk.SWEEPS,
+                              "lipschitz_ref_formula")
+        print(f"study speaker: K1 launches per audio sweep (attack, "
+              f"points, launches): {audio_points}", flush=True)
+        check(len(audio_points) == 3
+              and all(n == k for _, n, k in audio_points),
+              f"speaker audio sweeps: K1 launches {audio_points}")
+        walls["speaker"] = time.perf_counter() - t0
+
+        # -- the accuracy study's framework arm, digit corpus seed 0
+        t0 = time.perf_counter()
+        wait("accuracy")
+        walls["accuracy_corpus_wait"] = time.perf_counter() - t0
+        run = acc.run_task("digit", acc_args, 0, archive=archive, device=dev,
+                           epoch_backend="fused")
+        matched = isinstance(run["framework"], dict)
+        check(matched, "accuracy: no archived run matches corpus seed 0")
+        jax_arm = run["framework"] if matched else run["port"]
+        arch_gap = archive["tasks"]["digit"]["runs"][0]["feature_max_abs_gap"]
+        f3 = {}
+        for variant in ("unconstrained", "constrained"):
+            f3[variant] = acc.f3_margin(
+                [r["clean"] for r in jax_arm[variant]],
+                [r["clean"] for r in run["port"][variant]], run["n_test"])
+            print(f"study accuracy {variant}: seed-mean clean JAX "
+                  f"{f3[variant]['jax']:.4f}, port {f3[variant]['port']:.4f}"
+                  f", gap {f3[variant]['gap']:.4f}, margin "
+                  f"{f3[variant]['margin']:.4f}; port per seed "
+                  f"{[r['clean'] for r in run['port'][variant]]}, epochs "
+                  f"{run['port_epochs_run'][variant]}", flush=True)
+        print(f"study accuracy: feature_max_abs_gap "
+              f"{run['feature_max_abs_gap']:.3e} (bar: the archive's "
+              f"{arch_gap:.3e}; the goldens' 5e-4); features "
+              f"{run['features_s']} s, port arm {run['port_train_s']} s",
+              flush=True)
+        check(all(v["ok"] for v in f3.values()), f"accuracy F3: {f3}")
+        check(run["feature_max_abs_gap"] <= arch_gap,
+              f"accuracy: feature gap {run['feature_max_abs_gap']}")
+        fit_epochs += sum(sum(e) for e in run["port_epochs_run"].values())
+        walls["accuracy"] = time.perf_counter() - t0
+    finally:
+        for p in writers.values():
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        shutil.rmtree(base, ignore_errors=True)
+
+    launches = {"k1": mel_power_cuda.launches,
+                "k2": product_spectral_norm_cuda.launches,
+                "k3": build_fused_epoch_call.launches}
+    print(f"study: launches {launches}; fit epochs {fit_epochs}, gates "
+          f"{len(gates)}; F9 gate readings (steps, layer-0 BN mean gap, bar "
+          f"6e-3): {[(k, g['steps'], g['max_dmu']) for k, g in gates.items()]}"
+          f"; walls {({k: round(v, 1) for k, v in walls.items()})} ({card})",
+          flush=True)
+    check(min(launches.values()) > 0, f"study: a kernel never ran {launches}")
+    check(launches["k3"] == fit_epochs + len(gates),
+          f"study: K3 replays {launches['k3']}, want {fit_epochs} epochs + "
+          f"{len(gates)} gates")
+    return {"launches": launches, "fit_epochs": fit_epochs, "gates": gates,
+            "walls": walls, "audio_points": audio_points,
+            "synthetic": {k: v for k, v in s_res.items() if k != "curves"},
+            "synthetic_product_norm": s_sigma,
+            "speaker": {k: v for k, v in p_res.items() if k != "curves"},
+            "speaker_product_norm": p_sigma,
+            "speaker_f9": f9,
+            "accuracy_f3": f3,
+            "accuracy_feature_gap": run["feature_max_abs_gap"],
+            "accuracy_port_epochs": run["port_epochs_run"]}
 
 
 FRONTEND_BARS = {  # the scheme's bar against the oracle on noise rows
@@ -4376,6 +4728,7 @@ def main() -> int:
                        card=card)
         par = timed("parallel", parallel_phase, dev, split, root, card=card)
         prof = timed("profile", profile_phase, dev, root, card=card)
+        study = timed("study", study_phase, dev, root, card=card)
     falt = timed("frontend_alt", frontend_alt_phase, dev, card=card)
     timing = timed("timing", timing_phase, dev, serve.pop("engine"),
                    serve.pop("speaker_engine"), serve.pop("recording"))
@@ -4404,6 +4757,7 @@ def main() -> int:
         "cli_launches": cli["k1_launches"],
         "attack_launches": atk["k1_launches"],
         "profile_launches": prof["k1_launches"],
+        "study_launches": study["launches"]["k1"],
         "max_abs_err": kern["max_abs_err"],
         "max_rel_err": kern["max_rel_err"],
         "tolerance": "vs plain twin: 1e-4 rel + 1e-8*peak; vs f64 chain "
@@ -4450,6 +4804,7 @@ def main() -> int:
         "cli_launches": cli["k2_launches"],
         "train_multi_launches": tmulti["plain"]["k2_launches"],
         "profile_launches": prof["k2_launches"],
+        "study_launches": study["launches"]["k2"],
         "parallel_world1_launches": par["world1"]["k2_launches"],
         "parallel_world1_timed_launches":
             par["world1"]["timed_k2_launches"],
@@ -4483,6 +4838,7 @@ def main() -> int:
         "launches": train["k3_launches"],
         "cli_launches": cli["k3_launches"],
         "train_multi_launches": tmulti["fused"]["k3_launches"],
+        "study_launches": study["launches"]["k3"],
         "max_abs_err": k3["max_abs_err"],
         "tolerance": "vs twin after one epoch: params < lr*max(8, 2*steps), "
                      "layer-0 BN mean < 6e-3, epoch loss/acc < 3e-2, Adam "
@@ -4591,6 +4947,7 @@ def main() -> int:
         "train_multi": tmulti,
         "parallel": par,
         "profile": prof,
+        "study": study,
         "frontend_alt": falt,
         "k3_vs_twin": {k: v for k, v in k3.items() if k != "max_abs_err"},
         "k6_vs_twin": {k: v for k, v in k6.items() if k != "max_abs_err"},
