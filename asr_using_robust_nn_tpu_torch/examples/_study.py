@@ -70,10 +70,12 @@ def fit_recipe(recipe: Recipe, tr, ytr, dv, ydv, *, epochs: int, rho: float,
                seed: int, device=None, n_iter: int = 8,
                epochs_per_dispatch: int = 1, patience: int | None = None,
                model_cfg: MLPConfig | None = None,
-               train_cfg: TrainConfig | None = None, init=None) -> dict:
+               train_cfg: TrainConfig | None = None, init=None,
+               epoch_backend: str = "auto") -> dict:
     """Train one recipe as the scripts do: a device-resident `Trainer.fit`
-    (K3 on the card through `epoch_backend="auto"`), patience = epochs
-    unless given, simple_norm(rho, n_iter) for the constrained side.
+    (K3 on the card through `epoch_backend="auto"`; "plain" is the f32
+    autograd epoch), patience = epochs unless given, simple_norm(rho,
+    n_iter) for the constrained side.
 
     `init` = (params, state, cstate) numpy trees in the JAX layout (cstate
     None for the unconstrained side) starts the fit from those weights and
@@ -84,7 +86,8 @@ def fit_recipe(recipe: Recipe, tr, ytr, dv, ydv, *, epochs: int, rho: float,
     tcfg = train_cfg or TrainConfig(
         batch_size=recipe.batch, epochs=epochs,
         patience=epochs if patience is None else patience, seed=seed,
-        device_resident=True, epochs_per_dispatch=epochs_per_dispatch)
+        device_resident=True, epochs_per_dispatch=epochs_per_dispatch,
+        epoch_backend=epoch_backend)
     kw, fit_kw = {}, {}
     if recipe.constrained:
         con = make_simple_norm_constraint(rho, n_iter=n_iter)
@@ -183,9 +186,18 @@ def device_line(device) -> str:
 
 
 def fit_info(fit: dict) -> dict:
-    """What a run record keeps of one fit: epochs, backend, seconds."""
+    """What a run record keeps of one fit: epochs, backend, seconds; with
+    BatchNorm, per layer the best state's units whose running variance is
+    under `bn_eps` and the least running variance."""
     res = fit["result"]
-    return {"epochs_run": int(res["epochs_run"]),
-            "epoch_backend": res["epoch_backend"],
-            "seconds": float(res["seconds"]),
-            "best_val_loss": float(res["best_val_loss"])}
+    out = {"epochs_run": int(res["epochs_run"]),
+           "epoch_backend": res["epoch_backend"],
+           "seconds": float(res["seconds"]),
+           "best_val_loss": float(res["best_val_loss"])}
+    cfg = fit["cfg"]
+    if cfg.batch_norm:
+        var = [s["var"] for s in fit["state"]["layers"] if "var" in s]
+        out["bn_units_under_eps"] = [int((v < cfg.bn_eps).sum()) for v in var]
+        out["bn_units"] = [int(v.numel()) for v in var]
+        out["bn_min_var"] = [float(v.min()) for v in var]
+    return out

@@ -164,7 +164,9 @@ def default_cells(task: str) -> list:
     return cells
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, overrides=None) -> int:
+    """The script; `overrides` goes to `eval_cell` (e.g. the plain epoch
+    for both recipes: `tools/study_arm.py`)."""
     ap = argparse.ArgumentParser(prog="hardness_sweep")
     ap.add_argument("--out", default=os.path.join(
         tempfile.gettempdir(), "hardness", "results.jsonl"))
@@ -197,7 +199,8 @@ def main(argv=None) -> int:
             r = eval_cell(cell["hard"], cell["label_noise"], cell["rho"],
                           args.epochs_u, args.epochs_c, args.seed,
                           FGSM_EPS, NOISE_SIGMAS,
-                          task=cell.get("task", args.task), device=dev)
+                          task=cell.get("task", args.task), device=dev,
+                          overrides=overrides)
             r["cell"] = i
             f.write(json.dumps(r) + "\n")
             f.flush()

@@ -146,7 +146,9 @@ def run_study(splits, *, rho=1.0, epochs=800, constrained_epochs=2000,
     return results, models
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, overrides=None) -> int:
+    """The script; `overrides` goes to `run_study` (e.g. the plain epoch
+    for both recipes: `tools/study_arm.py`)."""
     ap = argparse.ArgumentParser(prog="robustness_study_speaker")
     ap.add_argument("--out", default="docs/results_speaker_torch")
     ap.add_argument("--n-speakers", type=int, default=20)
@@ -179,7 +181,7 @@ def main(argv=None) -> int:
         results, models = run_study(
             splits, rho=args.rho, epochs=args.epochs,
             constrained_epochs=args.constrained_epochs, seed=args.seed,
-            device=dev, out=args.out)
+            device=dev, out=args.out, overrides=overrides)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     results["corpus"] = dict(n_speakers=args.n_speakers,

@@ -136,7 +136,9 @@ def run_study(splits, *, rho=0.1, epochs=150, constrained_epochs=None,
     return results, models
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, overrides=None) -> int:
+    """The script; `overrides` goes to `run_study` (e.g. the plain epoch
+    for both recipes: `tools/study_arm.py`)."""
     ap = argparse.ArgumentParser(prog="robustness_study_synthetic")
     ap.add_argument("--out", default="docs/results_synthetic_torch")
     ap.add_argument("--files-per-class", type=int, default=60)
@@ -166,7 +168,7 @@ def main(argv=None) -> int:
         results, models = run_study(
             splits, rho=args.rho, epochs=args.epochs,
             constrained_epochs=args.constrained_epochs, seed=args.seed,
-            device=dev, out=args.out)
+            device=dev, out=args.out, overrides=overrides)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     path = os.path.join(args.out, "results.json")

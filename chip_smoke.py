@@ -164,7 +164,12 @@ which raises on failure (the exit code is then non-zero):
            f64 oracle within the archive's own gap; clean accuracy, product norm,
            Lipschitz ordering and finite sweeps checked for both studies; K3
            replays = epochs run + the parity gates run; each gate's BN-mean
-           gap printed (F9);
+           gap printed (F9). Before the speaker study, F9's readings on its
+           corpus: the gate after 1-14 steps, K3 / twin / reordered twin /
+           plain epoch apart at 14 steps, and K3 and its twin in lockstep
+           (every quantity of every step from K3's own state), which fails
+           the phase if a computed quantity parts by more than one bf16 ulp
+           of its operands' scale;
   frontend_alt every `Frontend` backend at both presets: against the f64
            oracle on noise rows at its scheme's bar, against the goldens
            (K1 and what `auto` resolves to held to 5e-4), timed at 1024
@@ -3059,8 +3064,9 @@ def parity_by_steps(dev, fe, split, cfg, batch, steps, card, draws=2):
 def bn_mean_three_ways(dev, cfg, batch, data, labels, n_true, seeds):
     """The layer-0 BN running mean after one dropout-0 epoch from the parity
     check's init and permutation (`epoch_parity_vs_plain` with `seeds`),
-    by K3, by its plain-PyTorch twin `fused_epoch_plain` on the same batches
-    and by the plain bf16 epoch -> the three largest gaps between them."""
+    by K3, by its plain-PyTorch twin `fused_epoch_plain` on the same batches,
+    by the twin with its sums in another order (`reordered_ops`) and by the
+    plain bf16 epoch -> the largest gaps between them."""
     import dataclasses
 
     import torch
@@ -3093,11 +3099,413 @@ def bn_mean_three_ways(dev, cfg, batch, data, labels, n_true, seeds):
     zeros = torch.zeros(xs.shape[0], dtype=torch.int32, device=dev)
     twin = ct.fused_epoch_plain(spec, fs_twin, xs, ys[..., None],
                                 ws[..., None], zeros)[0]
+    reordered = ct.fused_epoch_plain(spec, fs_twin, xs, ys[..., None],
+                                     ws[..., None], zeros,
+                                     ops=reordered_ops(spec))[0]
     mu = {"k3": ct.unpack_params(spec, k3)[1]["layers"][0]["mean"],
           "twin": ct.unpack_params(spec, twin)[1]["layers"][0]["mean"],
+          "reordered": ct.unpack_params(spec, reordered)[1]["layers"][0][
+              "mean"],
           "plain": plain["layers"][0]["mean"]}
     return {f"{a}_vs_{b}": float(torch.max(torch.abs(mu[a] - mu[b])))
-            for a, b in (("k3", "twin"), ("twin", "plain"), ("k3", "plain"))}
+            for a, b in (("k3", "twin"), ("twin", "plain"), ("k3", "plain"),
+                         ("twin", "reordered"), ("k3", "reordered"))}
+
+
+def _bf16_reading(k3, twin, scale=None):
+    """How far K3's value of one quantity is from the twin's: the largest
+    gap, the scale of the operands (given for a sum: its largest term;
+    else the twin's largest magnitude), one bf16 ulp at that scale
+    (2^(floor(log2 scale) - 7)), the gap in those ulps, how many entries
+    part by more than one, and the mean signed gap in ulps."""
+    import math
+
+    import torch
+
+    k3, twin = k3.double().flatten(), twin.double().flatten()
+    diff = k3 - twin
+    if scale is None:
+        scale = float(twin.abs().max()) if twin.numel() else 0.0
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 2.0 ** -133
+    gap = float(diff.abs().max()) if diff.numel() else 0.0
+    if not bool(torch.isfinite(k3).all() and torch.isfinite(twin).all()):
+        gap = float("inf")
+    return {"max_abs": gap, "scale": scale, "ulp": ulp, "ulps": gap / ulp,
+            "n_over": int((diff.abs() > ulp).sum()), "n": int(diff.numel()),
+            "bias_ulps": float(diff.mean()) / ulp if diff.numel() else 0.0}
+
+
+class K3TwinLockstep:
+    """K3 and a twin in lockstep through one epoch (F9): each operation of
+    `ops/cuda_train.py::_step` runs on K3's kernels, then on the twin from
+    the same buffers as they were before it, and the quantities that
+    operation computes are read from both; then K3's buffers are put back,
+    so that every operation of every step starts from K3's own state and
+    the reading is the departure of that operation alone, in bf16 ulps of
+    the scale of its operands (a sum's: its largest term; an elementwise
+    result's: its largest value). Quantities in the order a step computes
+    them: x (bf16) and the row-weight sum; per hidden
+    layer z and a (K3's plain-epilogue GEMM kernel on the same operands: the
+    main loop of its fused forward), mu, sigma^2 (from the running
+    variance's update), 1/sd, x^ as stored (bf16), the output (bf16) and
+    the running statistics; the logits; the CE gradient dz (bf16), the
+    output bias's db (the operation run again with that first moment zeroed:
+    m' = (1 - b1) g) and the loss; per layer from the top, dD (K3's plain dX
+    GEMM kernel), dx^ = dD gamma, dz (bf16), dgamma, dbeta and db (as the
+    output bias's) and the updated gamma, beta, b; per layer dW (K3's dW + Adam kernel on zero
+    moments, whose m' is (1 - b1) dW), Adam's m and v, the fp32 master after
+    NonNeg and its bf16 copy; the projection's factor f, sigma = rho / f^m
+    and the power-iteration vector u."""
+
+    def __init__(self, spec):
+        import dataclasses
+
+        from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+        self.spec = spec
+        self.k3 = ct._CudaOps(spec)
+        self.twin = ct._PlainOps(spec)
+        ct.preload_kernels(self.k3.lib)
+        ct.preload()
+        plain = dict(cluster=(1, 1, 1), cluster_axis=None,
+                     bn_in_epilogue=False)
+        plan = self.k3.plan
+        self.fwd_dims = [dataclasses.replace(L, kernel="gemm_fwd", **plain)
+                         for L in plan["fwd"]]
+        self.dx_dims = [None] + [dataclasses.replace(L, kernel="gemm_dx",
+                                                     **plain)
+                                 for L in plan["dx"][1:]]
+        a = ct._adam_consts(spec)
+        self.b1, self.omb1 = a["b1"], a["omb1"]
+        self.mom = spec.cfg.bn_momentum
+        self.rows, self.step = [], -1
+
+    def bind(self, fs, sc, losses, accs):
+        w = {}
+        for k in ("masters", "w16", "mw", "vw"):
+            w.update({f"{k}[{i}]": t for i, t in enumerate(fs[k])})
+        w.update({f"small.{k}": t for k, t in fs["small"].items()})
+        w.update(u=fs["u"], count=fs["count"], scales=fs["scales"],
+                 losses=losses, accs=accs)
+        for k, v in sc.items():
+            if isinstance(v, list):
+                w.update({f"{k}[{i}]": t for i, t in enumerate(v)})
+            else:
+                w[k] = v
+        self.world, self.fs = w, fs
+
+    def _note(self, op, q, k3, twin, scale=None):
+        self.rows.append(dict(step=self.step, op=op, q=q,
+                              **_bf16_reading(k3, twin, scale)))
+
+    def _both(self, op, name, args, read):
+        """Run `name` on K3, then on the twin from the same buffers; read
+        the quantities (`read(before)` -> {quantity: tensor, or (tensor,
+        the scale of its operands on K3's side)}) after each; leave K3's
+        buffers."""
+        import torch
+
+        def split(v):
+            return (v[0], float(v[1])) if isinstance(v, tuple) else (v, None)
+
+        before = {k: t.clone() for k, t in self.world.items()}
+        getattr(self.k3, name)(*args)
+        torch.cuda.synchronize()
+        got = {q: (split(v)[0].clone(), split(v)[1])
+               for q, v in read(before).items()}
+        after = {k: t.clone() for k, t in self.world.items()}
+        for k, t in self.world.items():
+            t.copy_(before[k])
+        getattr(self.twin, name)(*args)
+        for q, v in read(before).items():
+            self._note(op, q, got[q][0], split(v)[0], got[q][1])
+        for k, t in self.world.items():
+            t.copy_(after[k])
+
+    def _grads(self, op, name, args, i, d, terms, dz):
+        """The gradients an operation hands Adam for layer i's small
+        vectors (the keys of `terms`, each with the scale of its sum's
+        terms; "b": the largest dz), read by running the operation on K3
+        and on the twin from the same buffers with those first moments
+        zeroed, where Adam's m' is (1 - b1) g."""
+        import torch
+
+        sm = self.fs["small"]
+        before = {k: t.clone() for k, t in self.world.items()}
+        got = []
+        for side in (self.k3, self.twin):
+            for k in terms:
+                sm["m_" + k][i].zero_()
+            getattr(side, name)(*args)
+            torch.cuda.synchronize()
+            got.append({k: sm["m_" + k][i, :d] / self.omb1 for k in terms})
+            if side is self.k3:
+                terms = dict(terms, b=dz.float().abs().max())
+            for k, t in self.world.items():
+                t.copy_(before[k])
+        for k, scale in terms.items():
+            self._note(op, f"d{k}", got[0][k], got[1][k], float(scale))
+
+    # -- the operations of ct._epoch / ct._step ---------------------------
+
+    def cast_w16(self, master, w16):
+        self.k3.cast_w16(master, w16)
+
+    def count_add(self, count, n):
+        self.k3.count_add(count, n)
+
+    def prologue(self, x, w, acts0, denom):
+        self.step += 1
+        self._both("prologue", "prologue", (x, w, acts0, denom),
+                   lambda b: {"x (bf16)": acts0.float(), "row-weight sum":
+                              denom})
+
+    def hidden_fwd(self, i, a16, w16, sm, w, sc, xhat, act_next, seeds, s):
+        import torch
+
+        B, N = a16.shape[0], w16.shape[1]
+        op = f"forward {i}"
+        st = self.k3._stream()
+        for q, ncls in (("z", N), ("a", -1)):
+            out = torch.empty((B, N), device=a16.device)
+            self.k3._ran("gemm_fwd probe", self.k3.lib.asr_fe_gemm_fwd(
+                a16.data_ptr(), w16.data_ptr(), sm["b"][i].data_ptr(),
+                out.data_ptr(), B, N, a16.shape[1], ncls,
+                self.fwd_dims[i].dims(), st))
+            torch.cuda.synchronize()
+            z = a16.float() @ w16.float() + sm["b"][i][:N]
+            self._note(op, q, out, z if q == "z" else torch.clamp_min(z, 0))
+        d, mom, a = N, self.mom, out  # K3's a: the sums' terms
+
+        def read(b):
+            mu = sc["muvec"][i, :d]
+            out = {"mu": (mu, a.abs().max()),
+                   "sigma^2": ((sm["rvar"][i, :d] - mom * b["small.rvar"][
+                       i, :d]) / (1 - mom), ((a - mu) ** 2).max()),
+                   "1/sd": sc["sdvec"][i, :d],
+                   "x^ (bf16)": xhat.float(), "output (bf16)":
+                   act_next.float(), "running mean": sm["rmean"][i, :d],
+                   "running var": sm["rvar"][i, :d]}
+            return out
+
+        self._both(op, "hidden_fwd",
+                   (i, a16, w16, sm, w, sc, xhat, act_next, seeds, s), read)
+
+    def gemm_fwd(self, i, a16, w16, bias_row, out, n_classes):
+        self._both("logits", "gemm_fwd", (i, a16, w16, bias_row, out,
+                                          n_classes),
+                   lambda b: {"logits": out[:, :n_classes]})
+
+    def ce_bwd(self, i, logits, y, w, sm, sc, losses, accs, s, dzb, count):
+        d = self.spec.cfg.n_classes
+
+        def read(b):
+            return {"CE dz (bf16)": dzb[:, :d].float(),
+                    "loss": losses[s:s + 1], "b": sm["b"][i, :d]}
+
+        args = (i, logits, y, w, sm, sc, losses, accs, s, dzb, count)
+        self._both("CE", "ce_bwd", args, read)
+        self._grads("CE", "ce_bwd", args, i, d, {"b": 0.0}, dzb[:, :d])
+
+    def dx_bn_bwd(self, i, dzb_up, w16_up, xhat, w, sm, sc, dzb, seeds, s,
+                  count):
+        import torch
+
+        B, N = dzb.shape
+        op = f"backward {i}"
+        dD = torch.empty((B, N), device=dzb.device)
+        self.k3._ran("gemm_dx probe", self.k3.lib.asr_fe_gemm_dx(
+            dzb_up.data_ptr(), w16_up.data_ptr(), dD.data_ptr(), B, N,
+            w16_up.shape[1], self.dx_dims[i + 1].dims(), self.k3._stream()))
+        torch.cuda.synchronize()
+        ref = dzb_up.float() @ w16_up.float().T
+        self._note(op, "dD", dD, ref)
+        bn = self.spec.cfg.batch_norm
+        if bn:
+            g = sm["gamma"][i, :N]
+            self._note(op, "dx^", dD * g, ref * g)
+
+        keys = ("gamma", "beta", "b") if bn else ("b",)
+
+        def read(b):
+            out = {"dz (bf16)": dzb.float()}
+            out.update({k: sm[k][i, :N] for k in keys})
+            return out
+
+        args = (i, dzb_up, w16_up, xhat, w, sm, sc, dzb, seeds, s, count)
+        self._both(op, "dx_bn_bwd", args, read)
+        terms = {"gamma": (dD * xhat.float()).abs().max(),
+                 "beta": dD.abs().max(), "b": 0.0}
+        self._grads(op, "dx_bn_bwd", args, i, N,
+                    {k: terms[k] for k in keys}, dzb)
+
+    def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
+        import torch
+
+        op = f"dW + Adam {i}"
+        probe = {k: [None] * i + [torch.zeros_like(fs[k][i]) if k in (
+            "mw", "vw") else fs[k][i].clone()] for k in ("masters", "mw",
+                                                         "vw", "w16")}
+        self.k3.gemm_dw_adam(i, acts, dzb, probe, count, s)
+        torch.cuda.synchronize()
+        term = (acts.float().abs().amax(1) * dzb.float().abs().amax(1)).max()
+        self._note(op, "dW", probe["mw"][i] / self.omb1,
+                   self.twin.dw_product(i, acts, dzb), float(term))
+        self._both(op, "gemm_dw_adam", (i, acts, dzb, fs, count, s),
+                   lambda b: {"Adam m": fs["mw"][i], "Adam v": fs["vw"][i],
+                              "master after NonNeg": fs["masters"][i],
+                              "w16": fs["w16"][i].float()})
+
+    def project(self, fs, sc):
+        import torch
+
+        m = self.spec.n_layers
+
+        def read(b):
+            f = torch.stack([
+                torch.sum(fs["masters"][i] * b[f"masters[{i}]"])
+                / torch.sum(b[f"masters[{i}]"] ** 2) for i in range(m)])
+            return {"rescale f": f, "sigma": self.spec.rho / f[:1] ** m,
+                    "u": fs["u"]}
+
+        self._both("projection", "project", (fs, sc), read)
+
+
+# the quantities of the lockstep that Adam (and the projection) move: the
+# parameters, their moments and copies, read but not held
+LOCKSTEP_PARAMS = ("Adam m", "Adam v", "master after NonNeg", "w16", "gamma",
+                   "beta", "b", "rescale f", "sigma", "u")
+
+
+def k3_twin_lockstep(dev, spec, fs, xs, ys, ws, seeds):
+    """One epoch of K3 and a twin in lockstep (`K3TwinLockstep`) from the
+    packed state `fs` on the batches xs (n, B, pdims[0]), ys, ws (n, B) and
+    the dropout seeds (n,) -> (the readings in step order, the first
+    departure: the first reading more than one bf16 ulp of its operands'
+    scale apart, or None)."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+    xs, ys, ws, seeds = ct._epoch_inputs(spec, xs, ys, ws, seeds)
+    fs = ct._state_map(lambda t: t.clone(), fs)
+    sc = ct._scratch(spec, dev)
+    n = xs.shape[0]
+    losses = torch.zeros(n, device=dev)
+    accs = torch.zeros(n, device=dev)
+    lock = K3TwinLockstep(spec)
+    lock.bind(fs, sc, losses, accs)
+    with torch.no_grad():
+        ct._epoch(lock, spec, fs, sc, xs, ys, ws, seeds, losses, accs)
+    first = next((r for r in lock.rows if r["ulps"] > 1.0), None)
+    return lock.rows, first
+
+
+def lockstep_on(dev, cfg, batch, data, labels, n_true, seeds):
+    """`k3_twin_lockstep` over the epoch of the parity check with `seeds`
+    (`epoch_parity_vs_plain`: its init, its permutation, dropout 0, rho 0.1,
+    4 rounds)."""
+    import dataclasses
+
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.train.epoch_scan import shuffle_batches
+    from asr_using_robust_nn_tpu_torch.train.trainer import _generator
+
+    cfg0 = dataclasses.replace(cfg, dropout=(0.0,) * len(cfg.dropout))
+    params, state = init_mlp(cfg0, _generator(dev, seeds[0]), device=dev)
+    spec = ct.FusedStepSpec(cfg=cfg0, batch=batch, rho=0.1, pi_iters=4)
+    feats = ct.pad_features(spec, data)
+    xs, ys, ws = shuffle_batches(feats, labels, batch, True,
+                                 _generator(dev, seeds[1]), n_true)
+    zeros = torch.zeros(xs.shape[0], dtype=torch.int32, device=dev)
+    return k3_twin_lockstep(dev, spec, ct.pack_state(spec, params, state),
+                            xs, ys, ws, zeros)
+
+
+def reordered_ops(spec):
+    """The twin with its fp32 sums in another order, the kind of order K3's
+    kernels add in: every GEMM accumulates its depth 16 at a time in order
+    (the steps of a wgmma k16 chain), column sums add 8-row groups in order.
+    The same arithmetic as the twin; only the order of the additions
+    differs."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+    def chained(a, b):
+        """a (M, K) @ b (K, N) in fp32, 16 of the depth at a time."""
+        out = torch.zeros((a.shape[0], b.shape[1]), device=a.device)
+        for k in range(0, a.shape[1], 16):
+            out = out + a[:, k:k + 16] @ b[k:k + 16]
+        return out
+
+    class ReorderedOps(ct._PlainOps):
+        def colsum(self, t):
+            total = torch.zeros(t.shape[1], device=t.device)
+            for block in t.split(8):
+                total = total + block.sum(0)
+            return total
+
+        def dw_product(self, i, acts, dzb):
+            return chained(acts.float().T, dzb.float())
+
+        def gemm_fwd(self, i, a16, w16, bias_row, out, n_classes):
+            d = out.shape[1]
+            z = chained(a16.float(), w16.float()) + bias_row[:d]
+            if n_classes >= 0:
+                cmask = torch.arange(d, device=z.device) >= n_classes
+                z = torch.where(cmask, -1e9, z)
+            else:
+                z = torch.clamp_min(z, 0.0)
+            out.copy_(z)
+
+        def gemm_dx(self, i, dzb, w16, out):
+            out.copy_(chained(dzb.float(), w16.float().T))
+
+    return ReorderedOps(spec)
+
+
+def print_lockstep(what, rows, first, card):
+    """One line: the first departure; one line: the per-quantity summary."""
+    if first is None:
+        top = max(rows, key=lambda r: r["ulps"])
+        head = (f"no quantity parts by more than one bf16 ulp of its "
+                f"operands' scale; the largest: step {top['step']}, "
+                f"{top['op']}, {top['q']}: {top['max_abs']:.3e} = "
+                f"{top['ulps']:.3f} ulps of {top['scale']:.3e}")
+    else:
+        head = (f"first departure: step {first['step']}, {first['op']}, "
+                f"{first['q']}: {first['max_abs']:.3e} = {first['ulps']:.2f} "
+                f"bf16 ulps of its scale {first['scale']:.3e} "
+                f"({first['n_over']} of {first['n']} entries over one ulp)")
+    summ = lockstep_summary(rows)
+    print(f"F9 lockstep K3 vs twin, {what}: {head} ({card})", flush=True)
+    print(f"F9 lockstep {what}, per quantity (max bf16 ulps, first step over "
+          f"one, entries over, mean signed ulps): " + "; ".join(
+              f"{k} {e['max_ulps']:.2f} {e['first_step_over']} "
+              f"{e['entries_over']} {e['mean_bias_ulps']:+.3f}"
+              for k, e in summ.items()), flush=True)
+    return summ
+
+
+def lockstep_summary(rows):
+    """Per (operation kind, quantity), in the order a step computes them:
+    the largest gap in bf16 ulps over the steps and layers, the first step
+    where it passes one ulp, and the mean signed gap (ulps)."""
+    out = {}
+    for r in rows:
+        key = f"{r['op'].rstrip('0123456789 ')} / {r['q']}"
+        e = out.setdefault(key, {"max_ulps": 0.0, "first_step_over": None,
+                                 "entries_over": 0, "bias_ulps": []})
+        e["max_ulps"] = max(e["max_ulps"], r["ulps"])
+        e["entries_over"] += r["n_over"]
+        e["bias_ulps"].append(r["bias_ulps"])
+        if r["ulps"] > 1.0 and e["first_step_over"] is None:
+            e["first_step_over"] = r["step"]
+    for e in out.values():
+        b = e.pop("bias_ulps")
+        e["mean_bias_ulps"] = float(np.mean(b))
+    return out
 
 
 def speaker_gate_readings(dev, splits, card, batch=64,
@@ -3107,9 +3515,14 @@ def speaker_gate_readings(dev, splits, card, batch=64,
     epoch (`epoch_parity_vs_plain`) for `speaker_constrained` on the study's
     standardized train rows, on the epoch's first k batches for each k in
     `steps` and each draw of the check's (init, permutation) seeds (the
-    first is the check's own), and at the whole epoch the three ways apart
-    of K3, its twin and the plain epoch (`bn_mean_three_ways`). Readings;
-    each check and each three-way reading replays K3 once."""
+    first is the check's own), and at the whole epoch how far apart K3, its
+    twin, the twin in another summation order and the plain epoch end
+    (`bn_mean_three_ways`). Readings; each check and each of those readings
+    replays K3 once. Then, on a card, K3 and its twin in lockstep over that
+    epoch (`lockstep_on`): every quantity of every step, each operation from
+    K3's own state; the script fails if a computed quantity (activations,
+    statistics, gradients; the parameters Adam moves are read only) parts by
+    more than one bf16 ulp of its operands' scale."""
     import torch
     from asr_using_robust_nn_tpu_torch.data.pipeline import (
         standardize_fit_all)
@@ -3124,7 +3537,7 @@ def speaker_gate_readings(dev, splits, card, batch=64,
     lab, _ = pad_to_multiple(np.asarray(splits.train_label, np.int64), batch)
     d = torch.from_numpy(d).to(dev)
     lab = torch.from_numpy(lab).to(dev)
-    out = {"steps": [], "three_ways": [], "replays": 0}
+    out = {"steps": [], "three_ways": [], "lockstep": [], "replays": 0}
     for seeds in draws:
         gaps = []
         for k in steps:
@@ -3142,7 +3555,24 @@ def speaker_gate_readings(dev, splits, card, batch=64,
               f"{batch}: {[f'{x:.2e}' for x in gaps]} (bar 6e-3); at "
               f"{steps[-1]} steps K3-twin {row['k3_vs_twin']:.2e}, "
               f"twin-plain {row['twin_vs_plain']:.2e}, K3-plain "
-              f"{row['k3_vs_plain']:.2e} ({card})", flush=True)
+              f"{row['k3_vs_plain']:.2e}, twin-reordered twin "
+              f"{row['twin_vs_reordered']:.2e}, K3-reordered twin "
+              f"{row['k3_vs_reordered']:.2e} ({card})", flush=True)
+        if dev.type != "cuda":
+            continue  # K3's kernels run only on a card
+        rows, first = lockstep_on(dev, cfg, batch, d, lab, n, seeds)
+        out["lockstep"].append(dict(
+            seeds=seeds, first=first, summary=print_lockstep(
+                f"speaker corpus, draw {seeds}, {-(-n // batch)} steps of "
+                f"{batch}", rows, first, card)))
+        # what a step computes, parameters aside: a near-zero gradient whose
+        # fp32 sign differs may move a parameter by a whole Adam step
+        computed = [r for r in rows if r["q"] not in LOCKSTEP_PARAMS]
+        worst = max(computed, key=lambda r: r["ulps"])
+        check(worst["ulps"] <= 1.0, f"F9 lockstep, draw {seeds}: K3 parts "
+              f"from its twin at step {worst['step']}, {worst['op']}, "
+              f"{worst['q']}: {worst['ulps']:.2f} bf16 ulps of its operands' "
+              f"scale")
     return out
 
 

@@ -490,6 +490,26 @@ def test_study_main_needs_a_card_unless_told_cpu(module, tmp_path,
     assert os.listdir(tmp_path) == []
 
 
+def test_study_main_passes_overrides_to_the_fits(tmp_path):
+    """`main(argv, overrides=...)` hands each recipe's keywords to its fit
+    (the route `tools/study_arm.py` takes to the plain epoch): on the CPU
+    `auto` resolves to the plain epoch, so the constrained side is asked for
+    the fused one, which runs K3's twin here. The run record keeps each
+    fit's backend and its BatchNorm units under `bn_eps`."""
+    out = tmp_path / "o"
+    argv = ["--files-per-class", "4", "--epochs", "2",
+            "--constrained-epochs", "2", "--device", CPU, "--out", str(out)]
+    assert syn.main(argv, overrides={
+        "constrained": {"epoch_backend": "fused"}}) == 0
+    fits = json.loads((out / "run.json").read_text())["fits"]
+    assert fits["unconstrained"]["epoch_backend"] == "plain"
+    assert fits["constrained"]["epoch_backend"] == "fused"
+    for fit in fits.values():
+        assert fit["bn_units"] == [1024, 512, 256, 128, 64]
+        assert all(0 <= k <= n for k, n in zip(fit["bn_units_under_eps"],
+                                               fit["bn_units"]))
+
+
 SCRIPT = os.path.join(REPO, "asr_using_robust_nn_tpu_torch", "examples",
                       "reproduce_thesis.sh")
 
