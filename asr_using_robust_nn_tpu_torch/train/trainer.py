@@ -548,7 +548,8 @@ class Trainer:
                     self.model_cfg, bs, d_train, l_train, n_true)
             gate = _FUSED_EPOCH_GATE[gate_key]
             if not gate["ok"]:
-                raise RuntimeError(f"fused epoch parity check failed: {gate}")
+                raise RuntimeError(f"fused epoch parity check failed "
+                                   f"({gate['why']}): {gate}")
             data_fused = pad_features(spec, d_train)
             fstate_cell = {"fs": pack_state(spec, params, state)}
             dims_last = self.model_cfg.n_classes

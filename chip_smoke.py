@@ -134,9 +134,15 @@ which raises on failure (the exit code is then non-zero):
            `evaluate`, fused run r against its solo K3 fit; then on the
            train phase's full split the batched plain epoch against the
            loop of solo plain epochs after one epoch, both timed; K3's parity
-           check against the plain epoch over epochs of 8, 16, 32 and 64
-           steps on fresh steady tones and on the bursts (the BN
-           running-mean gap beside its bar, a reading);
+           gate (`epoch_parity_vs_plain`: K3 and its twin in lockstep over
+           the first 8 steps and the last, and the layer-0 BN running-mean
+           gap against the plain epoch beside its bar max(6e-3, c s), s the
+           spread of summation order on the same rows) must pass K3 over
+           epochs of 8, 16, 32 and 64 steps on fresh steady tones and on the
+           bursts, two draws each, and refuse each planted fault of
+           `tools/gate_faults.py` (a)-(f) on both at 32 steps with a ragged
+           last batch; a Trainer.fit with `epoch_backend="auto"` on 64 steps
+           of steady tones must train on K3;
   parallel the parallel slice on the one card: a one-rank world over NCCL
            (DataParallelTrainer's digit-recipe steps bit for bit
            `Trainer`'s, K2 once a step); a world of two gloo ranks sharing
@@ -155,21 +161,21 @@ which raises on failure (the exit code is then non-zero):
            full width, both fits on K3; 150 unconstrained and 600
            constrained epochs), the demo (streaming: K2 once a constrained
            step), the speaker study at 100 / 200 epochs (depth cut; full
-           width, K1 once an audio sweep point; or, where the trainer's
-           parity gate refuses K3 for the constrained recipe (F9), that
-           verdict held to the BN-mean bar alone) and the accuracy study's
+           width, K1 once an audio sweep point; the trainer's parity gate
+           must pass K3 for both recipes) and the accuracy study's
            framework arm on digit corpus seed 0 at the archived protocol (K3
            a run, train seeds 1000-1003) within the F3 margin of the archived
            JAX arm's seed-mean clean accuracy, its K1 features against the
            f64 oracle within the archive's own gap; clean accuracy, product norm,
            Lipschitz ordering and finite sweeps checked for both studies; K3
            replays = epochs run + the parity gates run; each gate's BN-mean
-           gap printed (F9). Before the speaker study, F9's readings on its
-           corpus: the gate after 1-14 steps, K3 / twin / reordered twin /
-           plain epoch apart at 14 steps, and K3 and its twin in lockstep
-           (every quantity of every step from K3's own state), which fails
-           the phase if a computed quantity parts by more than one bf16 ulp
-           of its operands' scale;
+           gap beside its bar printed (F9). Before the speaker study, F9's
+           readings on its corpus: the gate after 1-14 steps (it must pass
+           K3), K3 / twin / reordered twin / plain epoch apart at 14 steps,
+           K3 and its twin in lockstep (every quantity of every step from
+           K3's own state), which fails the phase if a computed quantity
+           parts by more than one bf16 ulp of its operands' scale, and the
+           gate at 14 steps refusing each planted fault (a)-(f);
   frontend_alt every `Frontend` backend at both presets: against the f64
            oracle on noise rows at its scheme's bar, against the goldens
            (K1 and what `auto` resolves to held to 5e-4), timed at 1024
@@ -3010,15 +3016,73 @@ def write_artifacts(out, splits):
     return out
 
 
+def gate_text(gate) -> str:
+    """The parity gate's readings in one line: the drift part (the layer-0
+    BN running-mean gap beside its bar max(6e-3, c s), params, loss), the
+    lockstep's steps and worst reading, the verdict and the wall time."""
+    w = gate["lockstep_worst"]
+    lock = (f"lockstep over steps {gate['lockstep_steps']}: worst "
+            f"{w['ulps']:.2f} bf16 ulps (step {w['step']}, {w['op']}, "
+            f"{w['q']})" if w else "no lockstep")
+    return (f"BN running-mean gap {gate['max_dmu']:.3e} (bar "
+            f"{gate['tol_bn_mean']:.3e} = max(6e-3, {gate['spread_factor']:g}"
+            f" x s {gate['s']:.3e})), params {gate['max_dw']:.3e} (bar "
+            f"{gate['tol_param']:g}), loss {gate['dloss']:.3e}; {lock}; "
+            + ("pass" if gate["ok"] else f"REFUSED by {gate['failed']}: "
+               f"{gate['why']}") + f"; {gate['seconds']['total']:.2f} s")
+
+
+def ragged(x, y, rows, cut=37):
+    """The first rows - cut rows of (x, y), zero-padded to `rows` as the
+    trainer pads a split: the last batch holds `cut` rows of weight 0."""
+    n_true = rows - cut
+    xp = np.zeros((rows,) + x.shape[1:], np.float32)
+    yp = np.zeros(rows, np.int64)
+    xp[:n_true], yp[:n_true] = x[:n_true], y[:n_true]
+    return xp, yp, n_true
+
+
+def gate_fault_readings(dev, what, cfg, batch, x, y, n_true, card,
+                        seeds=(7, 3)):
+    """The parity gate on the rows x, y (numpy, the first n_true real) for
+    K3 and for each fault of `tools/gate_faults.py` planted in one operation
+    of K3's step: K3 must pass, each fault must be refused. Prints which
+    part refused each and why."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.tools import gate_faults as gf
+
+    data = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    labels = torch.from_numpy(np.asarray(y, np.int64)).to(dev)
+    out = {}
+    for name in ("none",) + tuple(gf.FAULTS):
+        cand = None if name == "none" else gf.candidate(name, dev)
+        g = ct.epoch_parity_vs_plain(cfg, batch, data, labels, n_true,
+                                     seeds=seeds, candidate=cand)
+        label = ("K3" if name == "none" else
+                 f"fault ({name}) {gf.FAULTS[name].__name__}")
+        print(f"gate faults, {what}: {label}: {gate_text(g)} ({card})",
+              flush=True)
+        check(g["ok"] == (name == "none"), f"gate faults, {what}: the gate "
+              f"{'refused' if name == 'none' else 'admitted'} {label}: "
+              f"{g['why']}")
+        out[name] = {k: g[k] for k in ("ok", "failed", "why", "max_dmu",
+                                       "tol_bn_mean", "s", "max_dw",
+                                       "lockstep_first", "seconds")}
+    return out
+
+
 def parity_by_steps(dev, fe, split, cfg, batch, steps, card, draws=2):
-    """K3's parity check against the plain epoch (`epoch_parity_vs_plain`)
+    """K3's parity gate against the plain epoch (`epoch_parity_vs_plain`)
     on epochs of each length in `steps`, on fresh steady tones (made with
     K1, standardized on themselves) and on the train phase's voiced bursts
     (its split, rows taken in a seeded order, again from the start where an
-    epoch needs more rows): the layer-0 BN running-mean gap beside its 6e-3
-    bar, a reading. Each of `draws` draws makes its own tones and burst
-    order and seeds the check's init and permutation afresh (draw 0: the
-    check's own seeds, the bursts in split order)."""
+    epoch needs more rows): the gate must pass K3 on each; its layer-0 BN
+    running-mean gap beside its bar, the order spread s and the lockstep's
+    worst reading are printed. Each of `draws` draws makes its own tones and
+    burst order and seeds the check's init and permutation afresh (draw 0:
+    the check's own seeds, the bursts in split order). -> (the gates, the
+    corpora of the last draw: {name: (x, y)})."""
     import torch
     from asr_using_robust_nn_tpu_torch.data.pipeline import (
         standardize_fit_all)
@@ -3051,14 +3115,12 @@ def parity_by_steps(dev, fe, split, cfg, batch, steps, card, draws=2):
                                                 labels[:rows], rows,
                                                 seeds=seeds)
                 out[f"{name}/{k}/draw{d}"] = gate
-                print(f"K3 parity by epoch length ({name}, draw {d}, {k} "
-                      f"steps of {batch}): BN running-mean gap "
-                      f"{gate['max_dmu']:.3e} (bar {gate['tol_bn_mean']:g}),"
-                      f" params {gate['max_dw']:.3e} (bar "
-                      f"{gate['tol_param']:g}), loss {gate['dloss']:.3e}; "
-                      f"{'pass' if gate['ok'] else 'FAIL'} ({card})",
+                print(f"K3 parity gate by epoch length ({name}, draw {d}, "
+                      f"{k} steps of {batch}): {gate_text(gate)} ({card})",
                       flush=True)
-    return out
+                check(gate["ok"], f"the parity gate refused K3 on {name}, "
+                      f"draw {d}, {k} steps: {gate['why']}")
+    return out, corpora
 
 
 def bn_mean_three_ways(dev, cfg, batch, data, labels, n_true, seeds):
@@ -3074,6 +3136,7 @@ def bn_mean_three_ways(dev, cfg, batch, data, labels, n_true, seeds):
         make_simple_norm_constraint)
     from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
     from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.ops.k3_lockstep import reordered_ops
     from asr_using_robust_nn_tpu_torch.train.epoch_scan import (
         build_epoch_fn, shuffle_batches)
     from asr_using_robust_nn_tpu_torch.train.trainer import (
@@ -3110,359 +3173,6 @@ def bn_mean_three_ways(dev, cfg, batch, data, labels, n_true, seeds):
     return {f"{a}_vs_{b}": float(torch.max(torch.abs(mu[a] - mu[b])))
             for a, b in (("k3", "twin"), ("twin", "plain"), ("k3", "plain"),
                          ("twin", "reordered"), ("k3", "reordered"))}
-
-
-def _bf16_reading(k3, twin, scale=None):
-    """How far K3's value of one quantity is from the twin's: the largest
-    gap, the scale of the operands (given for a sum: its largest term;
-    else the twin's largest magnitude), one bf16 ulp at that scale
-    (2^(floor(log2 scale) - 7)), the gap in those ulps, how many entries
-    part by more than one, and the mean signed gap in ulps."""
-    import math
-
-    import torch
-
-    k3, twin = k3.double().flatten(), twin.double().flatten()
-    diff = k3 - twin
-    if scale is None:
-        scale = float(twin.abs().max()) if twin.numel() else 0.0
-    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 2.0 ** -133
-    gap = float(diff.abs().max()) if diff.numel() else 0.0
-    if not bool(torch.isfinite(k3).all() and torch.isfinite(twin).all()):
-        gap = float("inf")
-    return {"max_abs": gap, "scale": scale, "ulp": ulp, "ulps": gap / ulp,
-            "n_over": int((diff.abs() > ulp).sum()), "n": int(diff.numel()),
-            "bias_ulps": float(diff.mean()) / ulp if diff.numel() else 0.0}
-
-
-class K3TwinLockstep:
-    """K3 and a twin in lockstep through one epoch (F9): each operation of
-    `ops/cuda_train.py::_step` runs on K3's kernels, then on the twin from
-    the same buffers as they were before it, and the quantities that
-    operation computes are read from both; then K3's buffers are put back,
-    so that every operation of every step starts from K3's own state and
-    the reading is the departure of that operation alone, in bf16 ulps of
-    the scale of its operands (a sum's: its largest term; an elementwise
-    result's: its largest value). Quantities in the order a step computes
-    them: x (bf16) and the row-weight sum; per hidden
-    layer z and a (K3's plain-epilogue GEMM kernel on the same operands: the
-    main loop of its fused forward), mu, sigma^2 (from the running
-    variance's update), 1/sd, x^ as stored (bf16), the output (bf16) and
-    the running statistics; the logits; the CE gradient dz (bf16), the
-    output bias's db (the operation run again with that first moment zeroed:
-    m' = (1 - b1) g) and the loss; per layer from the top, dD (K3's plain dX
-    GEMM kernel), dx^ = dD gamma, dz (bf16), dgamma, dbeta and db (as the
-    output bias's) and the updated gamma, beta, b; per layer dW (K3's dW + Adam kernel on zero
-    moments, whose m' is (1 - b1) dW), Adam's m and v, the fp32 master after
-    NonNeg and its bf16 copy; the projection's factor f, sigma = rho / f^m
-    and the power-iteration vector u."""
-
-    def __init__(self, spec):
-        import dataclasses
-
-        from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
-
-        self.spec = spec
-        self.k3 = ct._CudaOps(spec)
-        self.twin = ct._PlainOps(spec)
-        ct.preload_kernels(self.k3.lib)
-        ct.preload()
-        plain = dict(cluster=(1, 1, 1), cluster_axis=None,
-                     bn_in_epilogue=False)
-        plan = self.k3.plan
-        self.fwd_dims = [dataclasses.replace(L, kernel="gemm_fwd", **plain)
-                         for L in plan["fwd"]]
-        self.dx_dims = [None] + [dataclasses.replace(L, kernel="gemm_dx",
-                                                     **plain)
-                                 for L in plan["dx"][1:]]
-        a = ct._adam_consts(spec)
-        self.b1, self.omb1 = a["b1"], a["omb1"]
-        self.mom = spec.cfg.bn_momentum
-        self.rows, self.step = [], -1
-
-    def bind(self, fs, sc, losses, accs):
-        w = {}
-        for k in ("masters", "w16", "mw", "vw"):
-            w.update({f"{k}[{i}]": t for i, t in enumerate(fs[k])})
-        w.update({f"small.{k}": t for k, t in fs["small"].items()})
-        w.update(u=fs["u"], count=fs["count"], scales=fs["scales"],
-                 losses=losses, accs=accs)
-        for k, v in sc.items():
-            if isinstance(v, list):
-                w.update({f"{k}[{i}]": t for i, t in enumerate(v)})
-            else:
-                w[k] = v
-        self.world, self.fs = w, fs
-
-    def _note(self, op, q, k3, twin, scale=None):
-        self.rows.append(dict(step=self.step, op=op, q=q,
-                              **_bf16_reading(k3, twin, scale)))
-
-    def _both(self, op, name, args, read):
-        """Run `name` on K3, then on the twin from the same buffers; read
-        the quantities (`read(before)` -> {quantity: tensor, or (tensor,
-        the scale of its operands on K3's side)}) after each; leave K3's
-        buffers."""
-        import torch
-
-        def split(v):
-            return (v[0], float(v[1])) if isinstance(v, tuple) else (v, None)
-
-        before = {k: t.clone() for k, t in self.world.items()}
-        getattr(self.k3, name)(*args)
-        torch.cuda.synchronize()
-        got = {q: (split(v)[0].clone(), split(v)[1])
-               for q, v in read(before).items()}
-        after = {k: t.clone() for k, t in self.world.items()}
-        for k, t in self.world.items():
-            t.copy_(before[k])
-        getattr(self.twin, name)(*args)
-        for q, v in read(before).items():
-            self._note(op, q, got[q][0], split(v)[0], got[q][1])
-        for k, t in self.world.items():
-            t.copy_(after[k])
-
-    def _grads(self, op, name, args, i, d, terms, dz):
-        """The gradients an operation hands Adam for layer i's small
-        vectors (the keys of `terms`, each with the scale of its sum's
-        terms; "b": the largest dz), read by running the operation on K3
-        and on the twin from the same buffers with those first moments
-        zeroed, where Adam's m' is (1 - b1) g."""
-        import torch
-
-        sm = self.fs["small"]
-        before = {k: t.clone() for k, t in self.world.items()}
-        got = []
-        for side in (self.k3, self.twin):
-            for k in terms:
-                sm["m_" + k][i].zero_()
-            getattr(side, name)(*args)
-            torch.cuda.synchronize()
-            got.append({k: sm["m_" + k][i, :d] / self.omb1 for k in terms})
-            if side is self.k3:
-                terms = dict(terms, b=dz.float().abs().max())
-            for k, t in self.world.items():
-                t.copy_(before[k])
-        for k, scale in terms.items():
-            self._note(op, f"d{k}", got[0][k], got[1][k], float(scale))
-
-    # -- the operations of ct._epoch / ct._step ---------------------------
-
-    def cast_w16(self, master, w16):
-        self.k3.cast_w16(master, w16)
-
-    def count_add(self, count, n):
-        self.k3.count_add(count, n)
-
-    def prologue(self, x, w, acts0, denom):
-        self.step += 1
-        self._both("prologue", "prologue", (x, w, acts0, denom),
-                   lambda b: {"x (bf16)": acts0.float(), "row-weight sum":
-                              denom})
-
-    def hidden_fwd(self, i, a16, w16, sm, w, sc, xhat, act_next, seeds, s):
-        import torch
-
-        B, N = a16.shape[0], w16.shape[1]
-        op = f"forward {i}"
-        st = self.k3._stream()
-        for q, ncls in (("z", N), ("a", -1)):
-            out = torch.empty((B, N), device=a16.device)
-            self.k3._ran("gemm_fwd probe", self.k3.lib.asr_fe_gemm_fwd(
-                a16.data_ptr(), w16.data_ptr(), sm["b"][i].data_ptr(),
-                out.data_ptr(), B, N, a16.shape[1], ncls,
-                self.fwd_dims[i].dims(), st))
-            torch.cuda.synchronize()
-            z = a16.float() @ w16.float() + sm["b"][i][:N]
-            self._note(op, q, out, z if q == "z" else torch.clamp_min(z, 0))
-        d, mom, a = N, self.mom, out  # K3's a: the sums' terms
-
-        def read(b):
-            mu = sc["muvec"][i, :d]
-            out = {"mu": (mu, a.abs().max()),
-                   "sigma^2": ((sm["rvar"][i, :d] - mom * b["small.rvar"][
-                       i, :d]) / (1 - mom), ((a - mu) ** 2).max()),
-                   "1/sd": sc["sdvec"][i, :d],
-                   "x^ (bf16)": xhat.float(), "output (bf16)":
-                   act_next.float(), "running mean": sm["rmean"][i, :d],
-                   "running var": sm["rvar"][i, :d]}
-            return out
-
-        self._both(op, "hidden_fwd",
-                   (i, a16, w16, sm, w, sc, xhat, act_next, seeds, s), read)
-
-    def gemm_fwd(self, i, a16, w16, bias_row, out, n_classes):
-        self._both("logits", "gemm_fwd", (i, a16, w16, bias_row, out,
-                                          n_classes),
-                   lambda b: {"logits": out[:, :n_classes]})
-
-    def ce_bwd(self, i, logits, y, w, sm, sc, losses, accs, s, dzb, count):
-        d = self.spec.cfg.n_classes
-
-        def read(b):
-            return {"CE dz (bf16)": dzb[:, :d].float(),
-                    "loss": losses[s:s + 1], "b": sm["b"][i, :d]}
-
-        args = (i, logits, y, w, sm, sc, losses, accs, s, dzb, count)
-        self._both("CE", "ce_bwd", args, read)
-        self._grads("CE", "ce_bwd", args, i, d, {"b": 0.0}, dzb[:, :d])
-
-    def dx_bn_bwd(self, i, dzb_up, w16_up, xhat, w, sm, sc, dzb, seeds, s,
-                  count):
-        import torch
-
-        B, N = dzb.shape
-        op = f"backward {i}"
-        dD = torch.empty((B, N), device=dzb.device)
-        self.k3._ran("gemm_dx probe", self.k3.lib.asr_fe_gemm_dx(
-            dzb_up.data_ptr(), w16_up.data_ptr(), dD.data_ptr(), B, N,
-            w16_up.shape[1], self.dx_dims[i + 1].dims(), self.k3._stream()))
-        torch.cuda.synchronize()
-        ref = dzb_up.float() @ w16_up.float().T
-        self._note(op, "dD", dD, ref)
-        bn = self.spec.cfg.batch_norm
-        if bn:
-            g = sm["gamma"][i, :N]
-            self._note(op, "dx^", dD * g, ref * g)
-
-        keys = ("gamma", "beta", "b") if bn else ("b",)
-
-        def read(b):
-            out = {"dz (bf16)": dzb.float()}
-            out.update({k: sm[k][i, :N] for k in keys})
-            return out
-
-        args = (i, dzb_up, w16_up, xhat, w, sm, sc, dzb, seeds, s, count)
-        self._both(op, "dx_bn_bwd", args, read)
-        terms = {"gamma": (dD * xhat.float()).abs().max(),
-                 "beta": dD.abs().max(), "b": 0.0}
-        self._grads(op, "dx_bn_bwd", args, i, N,
-                    {k: terms[k] for k in keys}, dzb)
-
-    def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
-        import torch
-
-        op = f"dW + Adam {i}"
-        probe = {k: [None] * i + [torch.zeros_like(fs[k][i]) if k in (
-            "mw", "vw") else fs[k][i].clone()] for k in ("masters", "mw",
-                                                         "vw", "w16")}
-        self.k3.gemm_dw_adam(i, acts, dzb, probe, count, s)
-        torch.cuda.synchronize()
-        term = (acts.float().abs().amax(1) * dzb.float().abs().amax(1)).max()
-        self._note(op, "dW", probe["mw"][i] / self.omb1,
-                   self.twin.dw_product(i, acts, dzb), float(term))
-        self._both(op, "gemm_dw_adam", (i, acts, dzb, fs, count, s),
-                   lambda b: {"Adam m": fs["mw"][i], "Adam v": fs["vw"][i],
-                              "master after NonNeg": fs["masters"][i],
-                              "w16": fs["w16"][i].float()})
-
-    def project(self, fs, sc):
-        import torch
-
-        m = self.spec.n_layers
-
-        def read(b):
-            f = torch.stack([
-                torch.sum(fs["masters"][i] * b[f"masters[{i}]"])
-                / torch.sum(b[f"masters[{i}]"] ** 2) for i in range(m)])
-            return {"rescale f": f, "sigma": self.spec.rho / f[:1] ** m,
-                    "u": fs["u"]}
-
-        self._both("projection", "project", (fs, sc), read)
-
-
-# the quantities of the lockstep that Adam (and the projection) move: the
-# parameters, their moments and copies, read but not held
-LOCKSTEP_PARAMS = ("Adam m", "Adam v", "master after NonNeg", "w16", "gamma",
-                   "beta", "b", "rescale f", "sigma", "u")
-
-
-def k3_twin_lockstep(dev, spec, fs, xs, ys, ws, seeds):
-    """One epoch of K3 and a twin in lockstep (`K3TwinLockstep`) from the
-    packed state `fs` on the batches xs (n, B, pdims[0]), ys, ws (n, B) and
-    the dropout seeds (n,) -> (the readings in step order, the first
-    departure: the first reading more than one bf16 ulp of its operands'
-    scale apart, or None)."""
-    import torch
-    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
-
-    xs, ys, ws, seeds = ct._epoch_inputs(spec, xs, ys, ws, seeds)
-    fs = ct._state_map(lambda t: t.clone(), fs)
-    sc = ct._scratch(spec, dev)
-    n = xs.shape[0]
-    losses = torch.zeros(n, device=dev)
-    accs = torch.zeros(n, device=dev)
-    lock = K3TwinLockstep(spec)
-    lock.bind(fs, sc, losses, accs)
-    with torch.no_grad():
-        ct._epoch(lock, spec, fs, sc, xs, ys, ws, seeds, losses, accs)
-    first = next((r for r in lock.rows if r["ulps"] > 1.0), None)
-    return lock.rows, first
-
-
-def lockstep_on(dev, cfg, batch, data, labels, n_true, seeds):
-    """`k3_twin_lockstep` over the epoch of the parity check with `seeds`
-    (`epoch_parity_vs_plain`: its init, its permutation, dropout 0, rho 0.1,
-    4 rounds)."""
-    import dataclasses
-
-    import torch
-    from asr_using_robust_nn_tpu_torch.models.mlp import init_mlp
-    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
-    from asr_using_robust_nn_tpu_torch.train.epoch_scan import shuffle_batches
-    from asr_using_robust_nn_tpu_torch.train.trainer import _generator
-
-    cfg0 = dataclasses.replace(cfg, dropout=(0.0,) * len(cfg.dropout))
-    params, state = init_mlp(cfg0, _generator(dev, seeds[0]), device=dev)
-    spec = ct.FusedStepSpec(cfg=cfg0, batch=batch, rho=0.1, pi_iters=4)
-    feats = ct.pad_features(spec, data)
-    xs, ys, ws = shuffle_batches(feats, labels, batch, True,
-                                 _generator(dev, seeds[1]), n_true)
-    zeros = torch.zeros(xs.shape[0], dtype=torch.int32, device=dev)
-    return k3_twin_lockstep(dev, spec, ct.pack_state(spec, params, state),
-                            xs, ys, ws, zeros)
-
-
-def reordered_ops(spec):
-    """The twin with its fp32 sums in another order, the kind of order K3's
-    kernels add in: every GEMM accumulates its depth 16 at a time in order
-    (the steps of a wgmma k16 chain), column sums add 8-row groups in order.
-    The same arithmetic as the twin; only the order of the additions
-    differs."""
-    import torch
-    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
-
-    def chained(a, b):
-        """a (M, K) @ b (K, N) in fp32, 16 of the depth at a time."""
-        out = torch.zeros((a.shape[0], b.shape[1]), device=a.device)
-        for k in range(0, a.shape[1], 16):
-            out = out + a[:, k:k + 16] @ b[k:k + 16]
-        return out
-
-    class ReorderedOps(ct._PlainOps):
-        def colsum(self, t):
-            total = torch.zeros(t.shape[1], device=t.device)
-            for block in t.split(8):
-                total = total + block.sum(0)
-            return total
-
-        def dw_product(self, i, acts, dzb):
-            return chained(acts.float().T, dzb.float())
-
-        def gemm_fwd(self, i, a16, w16, bias_row, out, n_classes):
-            d = out.shape[1]
-            z = chained(a16.float(), w16.float()) + bias_row[:d]
-            if n_classes >= 0:
-                cmask = torch.arange(d, device=z.device) >= n_classes
-                z = torch.where(cmask, -1e9, z)
-            else:
-                z = torch.clamp_min(z, 0.0)
-            out.copy_(z)
-
-        def gemm_dx(self, i, dzb, w16, out):
-            out.copy_(chained(dzb.float(), w16.float().T))
-
-    return ReorderedOps(spec)
 
 
 def print_lockstep(what, rows, first, card):
@@ -3511,23 +3221,28 @@ def lockstep_summary(rows):
 def speaker_gate_readings(dev, splits, card, batch=64,
                           steps=(1, 2, 4, 7, 10, 14),
                           draws=((7, 3), (8, 4), (9, 5))):
-    """F9 on the speaker study's corpus: K3's parity check against the plain
+    """F9 on the speaker study's corpus: K3's parity gate against the plain
     epoch (`epoch_parity_vs_plain`) for `speaker_constrained` on the study's
     standardized train rows, on the epoch's first k batches for each k in
     `steps` and each draw of the check's (init, permutation) seeds (the
-    first is the check's own), and at the whole epoch how far apart K3, its
-    twin, the twin in another summation order and the plain epoch end
-    (`bn_mean_three_ways`). Readings; each check and each of those readings
-    replays K3 once. Then, on a card, K3 and its twin in lockstep over that
-    epoch (`lockstep_on`): every quantity of every step, each operation from
-    K3's own state; the script fails if a computed quantity (activations,
-    statistics, gradients; the parameters Adam moves are read only) parts by
-    more than one bf16 ulp of its operands' scale."""
+    first is the check's own): the gate must pass K3 on each. At the whole
+    epoch how far apart K3, its twin, the twin in another summation order
+    and the plain epoch end (`bn_mean_three_ways`), a reading. Each gate and
+    each of those readings replays K3 once. Then, on a card, K3 and its twin
+    in lockstep over that epoch (`lockstep_on`): every quantity of every
+    step, each operation from K3's own state; the script fails if a
+    computed quantity (activations, statistics, gradients, the projection's
+    factors; the parameters Adam moves are read only) parts by more than
+    one bf16 ulp of its operands' scale. Last, the gate on the whole epoch
+    (a ragged last batch) must refuse each planted fault of
+    `tools/gate_faults.py` and pass K3 (`gate_fault_readings`)."""
     import torch
     from asr_using_robust_nn_tpu_torch.data.pipeline import (
         standardize_fit_all)
     from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig
     from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+    from asr_using_robust_nn_tpu_torch.ops.k3_lockstep import (
+        LOCKSTEP_PARAMS, lockstep_on)
     from asr_using_robust_nn_tpu_torch.parallel.mesh import pad_to_multiple
 
     cfg = MLPConfig.speaker_constrained()
@@ -3535,9 +3250,12 @@ def speaker_gate_readings(dev, splits, card, batch=64,
                              splits.test_data)[0]
     d, n = pad_to_multiple(tr.astype(np.float32), batch)
     lab, _ = pad_to_multiple(np.asarray(splits.train_label, np.int64), batch)
+    out = {"steps": [], "three_ways": [], "lockstep": [], "replays": 0}
+    if n == d.shape[0]:  # no padded rows: leave the last batch ragged
+        d, lab, n = ragged(d, lab, d.shape[0])
+    x_np, y_np = d, lab
     d = torch.from_numpy(d).to(dev)
     lab = torch.from_numpy(lab).to(dev)
-    out = {"steps": [], "three_ways": [], "lockstep": [], "replays": 0}
     for seeds in draws:
         gaps = []
         for k in steps:
@@ -3546,13 +3264,17 @@ def speaker_gate_readings(dev, splits, card, batch=64,
                                          min(rows, n), seeds=seeds)
             out["steps"].append(dict(seeds=seeds, steps=k, **g))
             gaps.append(g["max_dmu"])
+            print(f"F9 speaker corpus, draw {seeds}, {k} steps of {batch}: "
+                  f"{gate_text(g)} ({card})", flush=True)
+            check(g["ok"], f"the parity gate refused K3 on the speaker "
+                  f"corpus, draw {seeds}, {k} steps: {g['why']}")
         row = dict(seeds=seeds, **bn_mean_three_ways(dev, cfg, batch, d, lab,
                                                      n, seeds))
         out["three_ways"].append(row)
         out["replays"] += len(steps) + 1
         print(f"F9 speaker corpus, draw {seeds}: layer-0 BN mean gap of K3 "
               f"against the plain epoch after {list(steps)} steps of "
-              f"{batch}: {[f'{x:.2e}' for x in gaps]} (bar 6e-3); at "
+              f"{batch}: {[f'{x:.2e}' for x in gaps]}; at "
               f"{steps[-1]} steps K3-twin {row['k3_vs_twin']:.2e}, "
               f"twin-plain {row['twin_vs_plain']:.2e}, K3-plain "
               f"{row['k3_vs_plain']:.2e}, twin-reordered twin "
@@ -3573,6 +3295,10 @@ def speaker_gate_readings(dev, splits, card, batch=64,
               f"from its twin at step {worst['step']}, {worst['op']}, "
               f"{worst['q']}: {worst['ulps']:.2f} bf16 ulps of its operands' "
               f"scale")
+    out["faults"] = gate_fault_readings(
+        dev, f"speaker corpus, {-(-n // batch)} steps of {batch} ({n} rows)",
+        cfg, batch, x_np, y_np, n, card)
+    out["replays"] += 1  # the faults' K3 gate; the faults launch eagerly
     return out
 
 
@@ -3606,6 +3332,7 @@ def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
     from asr_using_robust_nn_tpu_torch.train import multi_run as mr
     from asr_using_robust_nn_tpu_torch.train.checkpoints import (
         CheckpointManager)
+    from asr_using_robust_nn_tpu_torch.train import trainer as trainer_mod
     from asr_using_robust_nn_tpu_torch.train.epoch_scan import epoch_program
     from asr_using_robust_nn_tpu_torch.train.trainer import (
         TrainConfig, Trainer, _tree_leaves, adam_optimizer)
@@ -3689,12 +3416,50 @@ def train_multi_phase(dev, split, root, card=None, seeds=(0, 1, 2, 3),
     l_tr, _ = pad_to_multiple(d.train_label.astype(np.int64), batch)
     gate = ct.epoch_parity_vs_plain(cfg, batch, torch.from_numpy(d_tr).to(
         dev), torch.from_numpy(l_tr).to(dev), n_true)
-    print(f"train-multi: K3's parity check against the plain epoch on the "
-          f"steady-tone features (a reading; Trainer.fit refuses K3 where it "
-          f"fails): {gate} ({card})", flush=True)
+    print(f"train-multi: K3's parity gate on the steady-tone features "
+          f"(Trainer.fit refuses K3 where it fails): {gate_text(gate)} "
+          f"({card})", flush=True)
+    check(gate["ok"], f"the parity gate refused K3 on the steady-tone "
+          f"features: {gate['why']}")
     out["k3_parity_on_tones"] = gate
-    out["k3_parity_by_steps"] = parity_by_steps(dev, fe, split, cfg, batch,
-                                                f9_steps, card)
+    out["k3_parity_by_steps"], corpora = parity_by_steps(
+        dev, fe, split, cfg, batch, f9_steps, card)
+    # the gate refuses each planted fault at 32 steps (a ragged last batch,
+    # where fault (c) computes something else) and passes K3 there
+    out["gate_faults"] = {
+        name: gate_fault_readings(dev, f"{name}, 32 steps of {batch}", cfg,
+                                  batch, *ragged(x, y, 32 * batch), card)
+        for name, (x, y) in corpora.items()}
+    # a fit on 64 steps of steady tones with the backend left to `auto`:
+    # the gate passes K3 and the fit trains on it
+    tx, ty = corpora["steady tones"]
+    steady = slice(0, 64 * batch)
+    trainer_mod._FUSED_EPOCH_GATE.clear()  # as a fresh process starts
+    ct.build_fused_epoch_call.launches = 0
+    t0 = time.perf_counter()
+    fit = Trainer(cfg, TrainConfig(
+        batch_size=batch, epochs=2, patience=2, seed=SEED,
+        device_resident=True, epoch_backend="auto"),
+        constraint=con.apply, constraint_state=con.init(init_mlp(
+            cfg, torch.Generator(device=dev).manual_seed(SEED),
+            device=dev)[0]), device=dev).fit(
+        tx[steady], ty[steady], tx[:2048], ty[:2048])
+    fit_s = time.perf_counter() - t0
+    replays = ct.build_fused_epoch_call.launches
+    (gate64,) = trainer_mod._FUSED_EPOCH_GATE.values()
+    print(f"train-multi: Trainer.fit(epoch_backend='auto') on 64 steps of "
+          f"{batch} steady tones: backend {fit['epoch_backend']}, "
+          f"{fit['epochs_run']} epochs, loss {fit['history']['loss']}, K3 "
+          f"replays {replays}, {fit_s:.2f} s with the gate; gate: "
+          f"{gate_text(gate64)} ({card})", flush=True)
+    check(fit["epoch_backend"] == "fused"
+          and replays == fit["epochs_run"] + 1
+          and np.isfinite(fit["history"]["loss"]).all(),
+          f"the 64-step steady-tone fit did not train on K3: "
+          f"{fit['epoch_backend']}, {replays} replays")
+    out["steady_64_fit"] = {"epoch_backend": fit["epoch_backend"],
+                            "replays": replays, "fit_s": fit_s,
+                            "gate": gate64}
 
     # (b) fused run r against its solo K3 fit, on the train phase's split
     (tr_x, tr_y), (va_x, va_y) = split["train"], split["val"]
@@ -4353,8 +4118,9 @@ def study_phase(dev, root, card=None, syn_files=60, syn_epochs=(150, 600),
                 "k2": product_spectral_norm_cuda.launches,
                 "k3": build_fused_epoch_call.launches}
     print(f"study: launches {launches}; fit epochs {fit_epochs}, gates "
-          f"{len(gates)}; F9 gate readings (steps, layer-0 BN mean gap, bar "
-          f"6e-3): {[(k, g['steps'], g['max_dmu']) for k, g in gates.items()]}"
+          f"{len(gates)}; the fits' gates (steps, layer-0 BN mean gap, its "
+          f"bar, s, the lockstep's worst ulps): "
+          f"{[(k, g['steps'], g['max_dmu'], g['tol_bn_mean'], g['s'], (g['lockstep_worst'] or {}).get('ulps')) for k, g in gates.items()]}"
           f"; walls {({k: round(v, 1) for k, v in walls.items()})} ({card})",
           flush=True)
     check(min(launches.values()) > 0, f"study: a kernel never ran {launches}")
