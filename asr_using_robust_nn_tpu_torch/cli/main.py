@@ -22,8 +22,9 @@
 `dolphin` (numpy and scipy on the host) runs on `--device` (default `cuda`,
 an error where there is none; `--device cpu` for the CPU). A checkpoint is a
 store dir written by `train --ckpt` (`best.npz` + `meta.json`,
-train/checkpoints.py) or a Keras layout `.h5` (read and written only where
-h5py is installed). `--plot` needs matplotlib. Not ported yet: `bench`
+train/checkpoints.py) or a Keras layout `.h5` (read and written everywhere
+by the port's own HDF5 codec, utils/hdf5.py, without h5py). `--plot` needs
+matplotlib. Not ported yet: `bench`
 (ROADMAP.md queue 1).
 """
 
@@ -109,12 +110,14 @@ def _add_train(sub):
                         "held against the plain epoch once per process); "
                         "'plain' = autograd; 'auto' = fused on a CUDA device "
                         "for a fresh run of the full simple_norm or no "
-                        "constraint (default)")
+                        "constraint (default); a refused parity check "
+                        "stops the fit under 'fused' and 'auto' alike")
     p.add_argument("--no-standardize", action="store_true")
     p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--monitor-lipschitz", action="store_true")
     p.add_argument("--export-h5", default=None,
-                   help="also export the best weights to .h5 (needs h5py)")
+                   help="also export the best weights to a Keras layout "
+                        ".h5")
     p.add_argument("--resume", action="store_true",
                    help="start from the best checkpoint already in --ckpt, "
                         "continuing its Adam state and best val_loss")
@@ -443,18 +446,12 @@ def _train(args, mesh):
     from ..models.convert import adam_state_from_numpy, params_from_numpy
     from ..models.mlp import init_mlp
     from ..train.checkpoints import (CheckpointManager, export_h5,
-                                     require_h5py, validate_model_tree)
-    from ..train.trainer import TrainConfig, Trainer
+                                     validate_model_tree)
+    from ..train.trainer import FusedEpochRefused, TrainConfig, Trainer
     from ..utils.device import resolve_device
 
     if not _need_artifacts(args.data):
         return 2
-    if args.export_h5:
-        try:  # refuse before training, not after it
-            require_h5py()
-        except RuntimeError as e:
-            print(f"error: --export-h5: {e}", file=sys.stderr)
-            return 2
     store = os.path.join(args.ckpt, "best.npz")
     if args.resume and not os.path.exists(store):
         # an explicit resume that cannot be honored must not fall through
@@ -527,10 +524,20 @@ def _train(args, mesh):
         best0 = meta.get("val_loss")
         say(f"resumed from {args.ckpt} (epoch {meta.get('epoch')}, "
             f"val_loss {best0})")
-    res = trainer.fit(tr, d.train_label, dv, d.dev_label,
-                      params=init_params, state=init_state,
-                      opt_state=init_opt, initial_best_val=best0,
-                      checkpoint_dir=args.ckpt, metrics_dir=args.metrics_dir)
+    try:
+        res = trainer.fit(tr, d.train_label, dv, d.dev_label,
+                          params=init_params, state=init_state,
+                          opt_state=init_opt, initial_best_val=best0,
+                          checkpoint_dir=args.ckpt,
+                          metrics_dir=args.metrics_dir)
+    except FusedEpochRefused as e:
+        # the verdict, for scripts, on the JSON line a fit would print
+        print(f"error: {e}", file=sys.stderr)
+        if trainer.writes_files:
+            print(json.dumps({"epoch_backend": None,
+                              "epoch_gate_why": e.gate["why"],
+                              "ckpt": args.ckpt}))
+        return 1
     say(f"epoch backend: {res['epoch_backend']}")
     test_loss, test_acc = trainer.evaluate(
         *params_from_numpy(res["best_params"], res["best_state"], dev),
@@ -547,6 +554,7 @@ def _train(args, mesh):
         "test_accuracy": test_acc,
         "examples_per_sec": res["examples_per_sec"],
         "epoch_backend": res["epoch_backend"],
+        "epoch_gate_why": None,
         "fit_seconds": res["seconds"],
         "checkpoint_writes": res["checkpoint_writes"],
         "checkpoint_seconds": res["checkpoint_seconds"],
@@ -754,7 +762,7 @@ def cmd_profile(args):
 def cmd_evaluate(args):
     from ..data.pipeline import load_artifacts, standardize_fit_all
     from ..models.convert import params_from_numpy
-    from ..train.trainer import TrainConfig, Trainer
+    from ..train.trainer import FusedEpochRefused, TrainConfig, Trainer
     from ..utils.device import resolve_device
 
     if not _need_artifacts(args.data):

@@ -13,10 +13,11 @@ Orbax. The port's store needs neither Orbax nor h5py:
 
 Both files are written under a temporary name and moved into place with
 `os.replace`, so an interrupted save leaves the previous best whole. The
-h5 helpers read and write the Keras weight layouts (both of them) and import
-h5py inside the function; where it is missing they raise RuntimeError. A
-JAX-trained model reaches the port through the .h5 file the JAX package's
-`export_h5` writes: `import_keras_h5` here, then `CheckpointManager.save_best`.
+h5 helpers read and write the Keras weight layouts (both of them) through
+the port's own HDF5 codec (`utils/hdf5.py`: numpy and the standard library,
+no h5py), so they run wherever the port runs, the card's machine included.
+A Keras model or a JAX-trained model reaches the port through its .h5 file
+(the JAX package's `export_h5` writes one): `import_keras_h5` reads it.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 __all__ = ["CheckpointManager", "export_h5", "import_keras_h5",
-           "validate_model_tree", "require_h5py"]
+           "validate_model_tree"]
 
 _TREE_KEY = "__tree__"
 
@@ -180,61 +181,50 @@ class CheckpointManager:
         return tree, meta
 
 
-def require_h5py():
-    """The h5py module, or RuntimeError where it is not installed."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise RuntimeError(
-            "reading or writing .h5 weight files needs h5py, which is not "
-            "installed here; use the .npz checkpoint store "
-            "(CheckpointManager) instead") from e
-    return h5py
-
-
 def export_h5(path, params: dict, state: dict | None = None) -> None:
     """Write weights in the Keras-TF2 h5 layout: one group per layer with
     kernel/bias (Dense) and gamma/beta/moving_mean/moving_variance (BN),
     plus the `layer_names`/`weight_names` attributes Keras's `load_weights`
-    walks. Leaves may be tensors or arrays."""
-    h5py = require_h5py()
+    walks. Leaves may be tensors or arrays. The file is moved into place
+    whole (`utils/hdf5.py::write_h5`)."""
+    from ..utils.hdf5 import write_h5
 
     def _wn(layer_name, weights):
         return np.asarray(
             [f"{layer_name}/{w}".encode() for w in weights], dtype="S64")
 
-    with h5py.File(path, "w") as f:
-        mw = f.create_group("model_weights")
-        layer_names = []
-        for i, layer in enumerate(params["layers"]):
-            name = f"dense_{i}" if i else "dense"
-            layer_names.append(name)
-            outer = mw.create_group(name)
-            g = outer.create_group(name)
-            g.create_dataset("kernel:0", data=_numpy(layer["w"]))
-            g.create_dataset("bias:0", data=_numpy(layer["b"]))
-            outer.attrs["weight_names"] = _wn(name, ("kernel:0", "bias:0"))
-            if "gamma" in layer:
-                bname = (f"batch_normalization_{i}" if i
-                         else "batch_normalization")
-                layer_names.append(bname)
-                bouter = mw.create_group(bname)
-                bg = bouter.create_group(bname)
-                gamma, beta = _numpy(layer["gamma"]), _numpy(layer["beta"])
-                bg.create_dataset("gamma:0", data=gamma)
-                bg.create_dataset("beta:0", data=beta)
-                s = (state or {"layers": [{}] * len(params["layers"])})[
-                    "layers"][i]
-                bg.create_dataset("moving_mean:0", data=_numpy(
-                    s.get("mean", np.zeros_like(beta))))
-                bg.create_dataset("moving_variance:0", data=_numpy(
-                    s.get("var", np.ones_like(gamma))))
-                bouter.attrs["weight_names"] = _wn(
-                    bname, ("gamma:0", "beta:0", "moving_mean:0",
-                            "moving_variance:0"))
-        mw.attrs["layer_names"] = np.asarray(
-            [n.encode() for n in layer_names], dtype="S64")
-        mw.attrs["backend"] = np.bytes_(b"tensorflow")
+    datasets, attrs = {}, {}
+    layer_names = []
+    for i, layer in enumerate(params["layers"]):
+        name = f"dense_{i}" if i else "dense"
+        layer_names.append(name)
+        g = f"model_weights/{name}/{name}"
+        datasets[f"{g}/kernel:0"] = _numpy(layer["w"])
+        datasets[f"{g}/bias:0"] = _numpy(layer["b"])
+        attrs[f"model_weights/{name}"] = {
+            "weight_names": _wn(name, ("kernel:0", "bias:0"))}
+        if "gamma" in layer:
+            bname = (f"batch_normalization_{i}" if i
+                     else "batch_normalization")
+            layer_names.append(bname)
+            bg = f"model_weights/{bname}/{bname}"
+            gamma, beta = _numpy(layer["gamma"]), _numpy(layer["beta"])
+            s = (state or {"layers": [{}] * len(params["layers"])})[
+                "layers"][i]
+            datasets[f"{bg}/gamma:0"] = gamma
+            datasets[f"{bg}/beta:0"] = beta
+            datasets[f"{bg}/moving_mean:0"] = _numpy(
+                s.get("mean", np.zeros_like(beta)))
+            datasets[f"{bg}/moving_variance:0"] = _numpy(
+                s.get("var", np.ones_like(gamma)))
+            attrs[f"model_weights/{bname}"] = {"weight_names": _wn(
+                bname, ("gamma:0", "beta:0", "moving_mean:0",
+                        "moving_variance:0"))}
+    attrs["model_weights"] = {
+        "layer_names": np.asarray([n.encode() for n in layer_names],
+                                  dtype="S64"),
+        "backend": np.bytes_(b"tensorflow")}
+    write_h5(path, datasets, attrs)
 
 
 _K3_DENSE = {"0": "kernel", "1": "bias"}
@@ -263,32 +253,30 @@ def import_keras_h5(path, cfg) -> tuple[dict, dict]:
     must both match `cfg`: variants can share every Dense shape and differ
     only in batch_norm, and without the second check a BN model would load
     with its BN weights left at their initial values."""
-    h5py = require_h5py()
+    from ..utils.hdf5 import read_h5
 
-    with h5py.File(path, "r") as f:
-        mw = f["model_weights"] if "model_weights" in f else f
-        dense, bn = {}, {}
-
-        def visit(name, obj):
-            if not isinstance(obj, h5py.Dataset):
-                return
-            parts = name.split("/")
-            if parts[0] == "layers" and len(parts) >= 4 and (
-                    parts[-2] == "vars"):
-                lname, idx = parts[1], parts[-1]
-                if lname.startswith("dense") and idx in _K3_DENSE:
-                    dense.setdefault(lname, {})[_K3_DENSE[idx]] = np.array(obj)
-                elif lname.startswith("batch_normalization") and idx in _K3_BN:
-                    bn.setdefault(lname, {})[_K3_BN[idx]] = np.array(obj)
-                return
-            lname = parts[0]
-            dname = parts[-1].split(":")[0]
-            if lname.startswith("dense"):
-                dense.setdefault(lname, {})[dname] = np.array(obj)
-            elif lname.startswith("batch_normalization"):
-                bn.setdefault(lname, {})[dname] = np.array(obj)
-
-        mw.visititems(visit)
+    datasets, attrs = read_h5(path)
+    # the walk is rooted at model_weights/ where the file has that group
+    root = "model_weights/" if "model_weights" in attrs else ""
+    dense, bn = {}, {}
+    for full, value in datasets.items():
+        if not full.startswith(root):
+            continue
+        parts = full[len(root):].split("/")
+        if parts[0] == "layers" and len(parts) >= 4 and (
+                parts[-2] == "vars"):
+            lname, idx = parts[1], parts[-1]
+            if lname.startswith("dense") and idx in _K3_DENSE:
+                dense.setdefault(lname, {})[_K3_DENSE[idx]] = np.array(value)
+            elif lname.startswith("batch_normalization") and idx in _K3_BN:
+                bn.setdefault(lname, {})[_K3_BN[idx]] = np.array(value)
+            continue
+        lname = parts[0]
+        dname = parts[-1].split(":")[0]
+        if lname.startswith("dense"):
+            dense.setdefault(lname, {})[dname] = np.array(value)
+        elif lname.startswith("batch_normalization"):
+            bn.setdefault(lname, {})[dname] = np.array(value)
 
     dense_names = sorted(dense, key=_order_key)
     bn_names = sorted(bn, key=_order_key)

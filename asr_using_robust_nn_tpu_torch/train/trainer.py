@@ -24,7 +24,7 @@ from ..models.mlp import MLPConfig, apply_mlp, init_mlp, predict_probs
 from ..utils.device import resolve_device
 
 __all__ = ["TrainConfig", "Trainer", "Adam", "adam_optimizer", "apply_update",
-           "cce_from_logits"]
+           "cce_from_logits", "FusedEpochRefused"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +49,24 @@ class TrainConfig:
     # epoch; on a CPU device its plain twin runs); 'auto' = 'fused' iff the
     # device is CUDA, the fit has no mesh, the optimizer state is fresh and
     # the constraint is the full simple_norm (or None), else 'plain'.
-    # 'fused' is held once per process and configuration by
-    # `epoch_parity_vs_plain`, and a failed check raises.
+    # The fused epoch is held once per process and configuration by
+    # `epoch_parity_vs_plain` (fit's result carries the verdict as
+    # `epoch_gate`). A refused check raises `FusedEpochRefused` under
+    # 'fused' and 'auto' alike: 'auto' chooses from what it sees before any
+    # launch, never from a kernel's failure, so the user reruns with 'plain'.
+
+
+class FusedEpochRefused(RuntimeError):
+    """The fused epoch's parity gate refused this configuration (`gate`:
+    its verdict). The fit stops before its first epoch; the plain epoch
+    trains it (`epoch_backend="plain"`, the CLI's `--epoch-backend plain`)."""
+
+    def __init__(self, gate):
+        self.gate = gate
+        super().__init__(
+            f"fused epoch parity check failed ({gate['why']}): {gate}; "
+            f"rerun with --epoch-backend plain (epoch_backend='plain') to "
+            f"train on the plain epoch")
 
 
 def _tree_map(fn, *trees):
@@ -347,7 +363,8 @@ class Trainer:
         Adam state, epoch, val_loss). `metrics_dir`: per-epoch scalars loss,
         acc, val_loss, val_acc (`utils/profiling.py::MetricWriter`). The
         result names the epoch backend that ran ("streaming", "plain" or
-        "fused") and what the checkpoint writes cost."""
+        "fused"), the fused epoch's parity verdict (`epoch_gate`: None
+        where no gate ran) and what the checkpoint writes cost."""
         cfg = self.cfg
         dev = self.device
         if len(val_x) == 0:
@@ -389,10 +406,11 @@ class Trainer:
 
         dr = None
         backend = "streaming"
+        gate = None
         if cfg.device_resident:
             dr = self._device_resident_setup(train_x, train_y, val_x, val_y,
                                              params, state, fresh_opt)
-            backend = dr[-1]
+            backend, gate = dr[-2:]
 
         t0 = time.perf_counter()
         steps = 0
@@ -403,7 +421,7 @@ class Trainer:
         for epoch in range(0, cfg.epochs, ep_stride):
             if dr is not None:
                 (epoch_fns, make_epoch_fn, eval_fn, d_train, l_train, n_true,
-                 d_val, l_val, n_val, _) = dr
+                 d_val, l_val, n_val, _, _) = dr
                 this_stride = min(ep_stride, cfg.epochs - epoch)
                 if this_stride not in epoch_fns:
                     epoch_fns[this_stride] = make_epoch_fn(this_stride)
@@ -493,6 +511,7 @@ class Trainer:
             "seconds": elapsed,
             "examples_per_sec": examples_seen / max(elapsed, 1e-9),
             "epoch_backend": backend,
+            "epoch_gate": gate,
             "checkpoint_writes": 0 if ckpt is None else ckpt.writes,
             "checkpoint_seconds": 0.0 if ckpt is None else ckpt.write_seconds,
         }
@@ -501,7 +520,8 @@ class Trainer:
                                state, fresh_opt):
         """The split on the device and the epoch/eval programs of a
         device-resident fit (plain autograd epoch or the fused epoch); the
-        last entry names the one chosen."""
+        last two entries name the one chosen and the parity gate's verdict
+        (None where no gate ran)."""
         from ..parallel.mesh import pad_to_multiple
         from .epoch_scan import build_epoch_fn, build_eval_fn
 
@@ -531,6 +551,7 @@ class Trainer:
         l_val = self._tensor(l_v, torch.int64)
 
         fused = self._resolve_epoch_backend(fresh_opt)
+        gate = None
         if fused:
             from ..ops.cuda_train import (
                 FusedStepSpec, build_fused_epoch_fn, epoch_parity_vs_plain,
@@ -548,8 +569,7 @@ class Trainer:
                     self.model_cfg, bs, d_train, l_train, n_true)
             gate = _FUSED_EPOCH_GATE[gate_key]
             if not gate["ok"]:
-                raise RuntimeError(f"fused epoch parity check failed "
-                                   f"({gate['why']}): {gate}")
+                raise FusedEpochRefused(gate)
             data_fused = pad_features(spec, d_train)
             fstate_cell = {"fs": pack_state(spec, params, state)}
             dims_last = self.model_cfg.n_classes
@@ -584,4 +604,4 @@ class Trainer:
             cfg.epochs_per_dispatch)}
         eval_fn = build_eval_fn(self.model_cfg, batch_size=vb, mesh=mesh)
         return (epoch_fns, make_epoch_fn, eval_fn, d_train, l_train, n_true,
-                d_val, l_val, len(vx), "fused" if fused else "plain")
+                d_val, l_val, len(vx), "fused" if fused else "plain", gate)

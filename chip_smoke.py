@@ -104,8 +104,12 @@ which raises on failure (the exit code is then non-zero):
            a full-width tree on the card against the CPU (2e-4) and one
            streaming epoch of each, `certify` l2 and linf (curves do not rise,
            eps 0 is the clean accuracy, the sound bounds within 1e-4 of a
-           float64 recomputation) and `--export-h5` (refused before training
-           without h5py, else read back bit for bit); each command's wall
+           float64 recomputation) and `--export-h5` through the port's own
+           HDF5 codec (read back bit for bit; `evaluate`, `certify` and
+           `infer` from the .h5 equal the same commands on the store, K1
+           launched by that `infer`; the committed Keras fixtures read to
+           the arrays stored beside them; write and read seconds of the
+           full-width .h5); each command's wall
            time, the fit's ms an epoch, the checkpoint writes' share of it,
            and the engine's cold and warm latency from the checkpoint;
   attack   the attack slice on the cli phase's digit checkpoints: `attack`
@@ -1814,6 +1818,8 @@ def train_phase(dev, split, epochs=40, batch=512, epoch_backend="auto"):
           f"{[round(v, 4) for v in h['val_acc']]}, K3 replays {k3}, product "
           f"norm of best params {sigma:.5f} (rho {rho})", flush=True)
     check(tr_k3._resolve_epoch_backend(True), "auto did not resolve to K3")
+    check(res["epoch_backend"] == "fused" and res["epoch_gate"]["ok"],
+          f"the fit ran on the {res['epoch_backend']} epoch, not K3")
     check(k3 == res["epochs_run"] + 1,
           f"K3 replayed {k3} times for {res['epochs_run']} epochs + 1")
     check(h["loss"][-1] < h["loss"][0], "training loss did not fall")
@@ -2228,7 +2234,9 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
     checkpoint store, an unconstrained one streaming; evaluate; infer from
     the checkpoint (K1); resume (K2, not K3); the norm, custom and fista
     projections on the card against the CPU, and a streaming epoch of each;
-    certify (l2, linf); export to .h5 where h5py is installed."""
+    certify (l2, linf); export to .h5 and evaluate, certify and infer (K1)
+    from it, through the port's own HDF5 codec; the committed Keras
+    fixtures read."""
     import torch
     from asr_using_robust_nn_tpu_torch.cli.main import load_model, model_cfg_for
     from asr_using_robust_nn_tpu_torch.constraints import (
@@ -2236,7 +2244,8 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
     from asr_using_robust_nn_tpu_torch.data.pipeline import (
         load_artifacts, standardize_fit_all)
     from asr_using_robust_nn_tpu_torch.models.convert import params_from_numpy
-    from asr_using_robust_nn_tpu_torch.models.mlp import dense_kernels, init_mlp
+    from asr_using_robust_nn_tpu_torch.models.mlp import (
+        MLPConfig, dense_kernels, init_mlp)
     from asr_using_robust_nn_tpu_torch.ops.cuda_mfcc import mel_power_cuda
     from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (
         product_spectral_norm_cuda)
@@ -2245,7 +2254,7 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
     from asr_using_robust_nn_tpu_torch.serve.engine import InferenceEngine
     from asr_using_robust_nn_tpu_torch.train import trainer as trainer_mod
     from asr_using_robust_nn_tpu_torch.train.checkpoints import (
-        CheckpointManager)
+        CheckpointManager, export_h5, import_keras_h5)
 
     on_card = dev.type == "cuda"
     card = card or card_line()
@@ -2275,6 +2284,10 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
     line = last_json(text)
     check("epoch backend: fused" in text if on_card
           else "epoch backend: plain" in text, "train_k3: epoch backend")
+    check(line["epoch_backend"] == ("fused" if on_card else "plain")
+          and line["epoch_gate_why"] is None, f"train_k3: epoch backend "
+          f"{line['epoch_backend']}, parity gate refusal "
+          f"{line['epoch_gate_why']}")
     if on_card:
         check(k3 == epochs + 1, f"K3 replayed {k3} times for {epochs} epochs "
               f"+ the parity check's one")
@@ -2464,33 +2477,88 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
             "strengths", "certified_constrained", "certified_unconstrained",
             "lipschitz_sound_constrained", "lipschitz_sound_unconstrained")}
 
-    # ---- 8. export --------------------------------------------------------------
+    # ---- 8. export to .h5 and back, on the port's own HDF5 codec --------------
     h5_path, ck_h5 = os.path.join(root, "c.h5"), os.path.join(root, "ck_h5")
-    try:
-        import h5py  # noqa: F401
-        have_h5py = True
-    except ImportError:
-        have_h5py = False
-    exp_argv = ["train", *c_args, "--epochs", "1", "--ckpt", ck_h5,
-                "--export-h5", h5_path]
-    if have_h5py:
-        run_cli(dev, "export", exp_argv, card, walls)
-        got = load_model(h5_path, cfg_c)
-        want = CheckpointManager(ck_h5).load_best()[0]
-        check(all(np.array_equal(a[k], b[k])
-                  for ta, tb in ((got[0], want["params"]),
-                                 (got[1], want["state"]))
-                  for a, b in zip(ta["layers"], tb["layers"]) for k in a),
-              "export: the .h5 does not read back bit for bit")
-        print(f"cli export: h5py present, {h5_path} reads back bit for bit "
-              f"({card})", flush=True)
-    else:
-        _, err = run_cli(dev, "export", exp_argv, card, walls, want_rc=2)
-        check("needs h5py" in err and not os.path.exists(ck_h5),
-              f"export without h5py: {err.strip()}")
-        print(f"cli export: h5py absent, `train --export-h5` refused before "
-              f"training: {err.strip()} ({card})", flush=True)
-    out["h5py"] = have_h5py
+    run_cli(dev, "export", ["train", *c_args, "--epochs", "1", "--ckpt", ck_h5,
+                            "--export-h5", h5_path], card, walls)
+    check(os.path.exists(h5_path), "export: train --export-h5 wrote no file")
+    got = load_model(h5_path, cfg_c)
+    want = CheckpointManager(ck_h5).load_best()[0]
+    check(all(np.array_equal(a[k], b[k])
+              for ta, tb in ((got[0], want["params"]),
+                             (got[1], want["state"]))
+              for a, b in zip(ta["layers"], tb["layers"]) for k in a),
+          "export: the .h5 does not read back bit for bit")
+    # the full-width digit_constrained file alone: write, then read
+    timed = os.path.join(root, "c_timed.h5")
+    t0 = time.perf_counter()
+    export_h5(timed, want["params"], want["state"])
+    h5_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    import_keras_h5(timed, cfg_c)
+    h5_read_s = time.perf_counter() - t0
+    h5_mb = os.path.getsize(timed) / 1e6
+    evals = {}
+    for src, ckpt in (("h5", h5_path), ("store", ck_h5)):
+        text, _ = run_cli(dev, f"evaluate_{src}", [
+            "evaluate", "--task", "digit", "--variant", "constrained",
+            "--data", art, "--ckpt", ckpt], card, walls)
+        ev_src = last_json(text)
+        text, _ = run_cli(dev, f"certify_{src}", [
+            "certify", "--task", "digit", "--data", art, "--constrained", ckpt,
+            "--unconstrained", ck_u, "--norm", "l2"], card, walls)
+        cert = last_json(text)
+        mel_power_cuda.launches = 0  # the infer path starts here
+        text, _ = run_cli(dev, f"infer_{src}", [
+            "infer", "--task", "digit", "--variant", "constrained", "--ckpt",
+            ckpt, "--data", art, "--audio", audio, "--warmup"], card, walls)
+        k1_src = mel_power_cuda.launches  # ... and ends here
+        evals[src] = (ev_src["test_loss"], ev_src["test_accuracy"],
+                      ev_src["confusion_matrix"],
+                      cert["certified_constrained"],
+                      [(r["path"], r["label"], r["confidence"])
+                       for r in last_json(text)["results"]], k1_src)
+    check(evals["h5"][:4] == evals["store"][:4], f"export: evaluate / "
+          f"certify from the .h5 {evals['h5'][:2]} differ from the store's "
+          f"{evals['store'][:2]}")
+    check(evals["h5"][4] == evals["store"][4], "export: infer from the .h5 "
+          "gives other labels or probabilities than from the store")
+    if on_card:
+        check(evals["h5"][5] == calls, f"export: infer from the .h5 launched "
+              f"K1 {evals['h5'][5]} times for {calls} frontend calls")
+    # the committed Keras files read to the arrays Keras held, bit for bit
+    data = os.path.join(REPO, "tests", "data")
+    with np.load(os.path.join(data, "keras_small_weights.npz")) as z:
+        held = {k: z[k] for k in z.files}
+    kcfg = MLPConfig(in_dim=16, n_classes=4, hidden=(32, 16),
+                     dropout=(0.4, 0.4))
+    for name in ("keras3_small.weights.h5", "keras_legacy_small.h5"):
+        kp, ks = import_keras_h5(os.path.join(data, name), kcfg)
+        pairs = [(kp["layers"][i][k], f"{d}/{v}")
+                 for i, d in enumerate(("dense", "dense_1", "dense_2"))
+                 for k, v in (("w", "kernel"), ("b", "bias"))]
+        pairs += [(src["layers"][i][k], f"{bn}/{v}")
+                  for i, bn in enumerate(("batch_normalization",
+                                          "batch_normalization_1"))
+                  for src, k, v in ((kp, "gamma", "gamma"),
+                                    (kp, "beta", "beta"),
+                                    (ks, "mean", "moving_mean"),
+                                    (ks, "var", "moving_variance"))]
+        check(all(np.array_equal(a, held[key]) for a, key in pairs),
+              f"export: the Keras fixture {name} does not read to the "
+              f"arrays Keras held")
+    print(f"cli export: `train --export-h5` wrote {h5_mb:.2f} MB, read back "
+          f"bit for bit; the full-width digit_constrained .h5 written in "
+          f"{1e3 * h5_write_s:.2f} ms and read in {1e3 * h5_read_s:.2f} ms; "
+          f"evaluate, certify l2 and infer from the .h5 equal the store's "
+          f"(test acc {evals['h5'][1]:.4f}; infer from the .h5 "
+          f"{walls['infer_h5']:.3f} s wall, K1 launches {evals['h5'][5]}); "
+          f"the Keras 3 and legacy fixtures read bit for bit ({card})",
+          flush=True)
+    out["h5"] = {"mb": h5_mb, "write_ms": 1e3 * h5_write_s,
+                 "read_ms": 1e3 * h5_read_s,
+                 "infer_wall_s": walls["infer_h5"],
+                 "k1_launches": evals["h5"][5]}
     out["walls_s"] = {k: round(v, 3) for k, v in walls.items()}
     print(f"cli wall seconds by command: {out['walls_s']} ({card})",
           flush=True)

@@ -215,15 +215,36 @@ def test_train_export_h5_and_evaluate_from_it(artifacts, corpus, capsys):
     assert _last_json(capsys)["confusion_matrix"]
 
 
-def test_export_h5_refused_before_training_without_h5py(
+def test_export_h5_then_evaluate_and_infer_without_h5py(
         artifacts, corpus, capsys, monkeypatch):
+    """`train --export-h5`, then `evaluate` and `infer` from the .h5, with
+    h5py blocked: the port's own codec writes and reads the file, and both
+    commands answer as they do from the store."""
     import sys
 
     monkeypatch.setitem(sys.modules, "h5py", None)
-    assert _train(artifacts, corpus / "ck_noh5", "--export-h5",
-                  str(corpus / "x.h5")) == 2
-    assert "needs h5py" in capsys.readouterr().err
-    assert not (corpus / "ck_noh5").exists()
+    h5 = corpus / "noh5.h5"
+    assert _train(artifacts, corpus / "ck_noh5", "--export-h5", str(h5),
+                  epochs=2) == 0
+    assert h5.exists()
+    capsys.readouterr()
+    outs = {}
+    for label, ck in (("h5", h5), ("store", corpus / "ck_noh5")):
+        assert main(["evaluate", "--task", "digit", "--variant",
+                     "constrained", "--data", str(artifacts), "--ckpt",
+                     str(ck), *CPU]) == 0
+        ev = _last_json(capsys)
+        assert main(["infer", "--task", "digit", "--variant", "constrained",
+                     "--ckpt", str(ck), "--data", str(artifacts), "--audio",
+                     str(corpus / "data" / "two"), "--buckets", "16",
+                     *CPU]) == 0
+        inf = _last_json(capsys)["results"]
+        outs[label] = (ev, [(r["path"], r["label"], r["confidence"])
+                            for r in inf])
+    assert outs["h5"][0]["test_accuracy"] == outs["store"][0]["test_accuracy"]
+    assert outs["h5"][0]["confusion_matrix"] == \
+        outs["store"][0]["confusion_matrix"]
+    assert outs["h5"][1] == outs["store"][1]
 
 
 def test_friendly_errors(tmp_path, capsys):

@@ -211,3 +211,106 @@ def test_bn_bar_admits_the_jax_pallas_epoch(steps):
     s = ct.order_spread(spec, fstate_from_numpy(fs_np, device="cpu"),
                         *(torch.from_numpy(a) for a in (xs, ys, ws, seeds)))
     assert gap < ct.bn_bar(steps, s), (gap, s)
+
+
+# -- a refused gate stops the fit under `auto` and `fused` alike ----------
+
+@pytest.fixture(scope="module")
+def refused_verdict():
+    """A real refusal: the gate's verdict on fault (b), the running mean
+    written wrong."""
+    rng = np.random.default_rng(13)
+    x, y = blobs_task(rng, n=2 * B, d=20, k=4)
+    g = _gate(x, y, 2 * B, candidate=gf.candidate("b", "cpu"))
+    assert not g["ok"] and g["why"]
+    return g
+
+
+def _auto_on_card(monkeypatch):
+    """`auto` resolves as on a CUDA device: to the fused epoch."""
+    from asr_using_robust_nn_tpu_torch.train import trainer as tm
+
+    resolve = tm.Trainer._resolve_epoch_backend
+    monkeypatch.setattr(
+        tm.Trainer, "_resolve_epoch_backend",
+        lambda self, fresh_opt: self.cfg.epoch_backend == "auto"
+        or resolve(self, fresh_opt))
+
+
+def _fit(backend, monkeypatch, verdict=None, on_card=False):
+    """A device-resident fit on the CPU. `on_card` stands in for the card:
+    `auto` then resolves to the fused epoch, as it does on a CUDA device.
+    `verdict` is planted in the trainer's gate cache under the fit's key,
+    so the gate answers with it."""
+    from asr_using_robust_nn_tpu_torch.train import trainer as tm
+
+    rng = np.random.default_rng(14)
+    x, y = blobs_task(rng, n=3 * B + 40, d=20, k=4)
+    cfg = mlp.MLPConfig(**KW)
+    tr = tm.Trainer(cfg, tm.TrainConfig(
+        batch_size=B, epochs=3, patience=10, seed=2, device_resident=True,
+        epoch_backend=backend), device="cpu")
+    if on_card:
+        _auto_on_card(monkeypatch)
+    if verdict is not None:
+        monkeypatch.setitem(tm._FUSED_EPOCH_GATE,
+                            (cfg, B, None, 4, "cpu"), verdict)
+    return tr.fit(x[:3 * B], y[:3 * B], x[3 * B:], y[3 * B:])
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused"])
+def test_refused_gate_raises(backend, refused_verdict, monkeypatch):
+    """A refusal stops the fit before its first epoch under `auto` as under
+    `fused`: `auto` chooses before any launch, never from a kernel's
+    failure. The error carries the verdict and names the way on: the plain
+    epoch, which then trains the same task and runs no gate."""
+    from asr_using_robust_nn_tpu_torch.train.trainer import FusedEpochRefused
+
+    with pytest.raises(FusedEpochRefused) as e:
+        _fit(backend, monkeypatch, refused_verdict, on_card=True)
+    assert e.value.gate is refused_verdict
+    assert refused_verdict["why"] in str(e.value)
+    assert "--epoch-backend plain" in str(e.value)
+    res = _fit("plain", monkeypatch)
+    assert res["epoch_backend"] == "plain" and res["epoch_gate"] is None
+
+
+def test_passing_gate_keeps_auto_on_the_fused_epoch(monkeypatch):
+    """A verdict that passes leaves `auto` on the fused epoch (its twin on
+    the CPU) and is returned."""
+    verdict = {"ok": True, "why": None}
+    res = _fit("auto", monkeypatch, verdict, on_card=True)
+    assert res["epoch_backend"] == "fused" and res["epoch_gate"] is verdict
+
+
+def test_cmd_train_reports_the_refusal(refused_verdict, monkeypatch,
+                                       tmp_path, capsys):
+    """`train --device-resident` under `auto` stops on a refused gate: exit
+    1, the error line names `--epoch-backend plain`, and the JSON line
+    carries the reason as `epoch_gate_why`."""
+    import json
+
+    from asr_using_robust_nn_tpu_torch.cli.main import main, model_cfg_for
+    from asr_using_robust_nn_tpu_torch.train import trainer as tm
+
+    rng = np.random.default_rng(15)
+    for name, n in (("train", 24), ("dev", 8), ("test", 8)):
+        np.save(tmp_path / f"{name}_data.npy", rng.standard_normal((n, 880)))
+        np.save(tmp_path / f"{name}_label.npy",
+                rng.integers(0, 10, n).astype(np.int32))
+    _auto_on_card(monkeypatch)
+    monkeypatch.setitem(
+        tm._FUSED_EPOCH_GATE,
+        (model_cfg_for("digit", "constrained"), 8, None, 4, "cpu"),
+        refused_verdict)
+    assert main(["train", "--task", "digit", "--variant", "constrained",
+                 "--constraint", "none", "--data", str(tmp_path), "--ckpt",
+                 str(tmp_path / "ck"), "--epochs", "1", "--batch-size", "8",
+                 "--log-every", "0", "--device-resident", "--device",
+                 "cpu"]) == 1
+    cap = capsys.readouterr()
+    line = json.loads(cap.out.strip().splitlines()[-1])
+    assert line["epoch_backend"] is None
+    assert line["epoch_gate_why"] == refused_verdict["why"]
+    assert cap.err.startswith("error: fused epoch parity check failed")
+    assert "--epoch-backend plain" in cap.err
