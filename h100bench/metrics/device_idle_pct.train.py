@@ -1,0 +1,7 @@
+"""device_idle_pct.train: the share of the traced window in which the
+device runs no kernel, copy or memset (training cells)."""
+
+
+def read(run):
+    t = run.trace
+    return None if t is None else 100.0 * (1.0 - t["busy_s"] / t["window_s"])
