@@ -52,6 +52,7 @@ from ..constraints import make_simple_norm_constraint
 from ..models.mlp import MLPConfig, init_mlp
 from ..train.epoch_scan import build_epoch_fn, shuffle_batches
 from ..train.trainer import _generator, adam_optimizer
+from ..utils.profiling import span
 from ._build import load_library
 from .cuda_spectral import pi_launch, preload
 from .spectral import product_spectral_norm_with_state
@@ -1054,8 +1055,10 @@ def build_fused_epoch_call(spec: FusedStepSpec, n_batches: int):
     per-step dropout seeds; losses/accs (n_batches, 1) f32. fstate' is a new
     state; its bf16 copies are a cast of its masters and its `scales` are 1
     (fold deferred scales into the masters first, as build_fused_epoch_fn
-    does). On CUDA tensors the first call per device captures the graph;
-    `run.graphs` maps each device to its `_EpochGraph` (for profiling)."""
+    does). On CUDA tensors the first call per device captures the graph
+    (buffers, kernel preload, capture: the span `k3.capture`,
+    `utils/profiling.py`); `run.graphs` maps each device to its
+    `_EpochGraph` (for profiling)."""
     graphs: dict = {}
 
     def run(fstate, xs, ys, ws, seeds):
@@ -1068,7 +1071,9 @@ def build_fused_epoch_call(spec: FusedStepSpec, n_batches: int):
             raise ValueError(f"fused epoch: unsupported device {xs.device}")
         g = graphs.get(xs.device)
         if g is None:
-            g = graphs[xs.device] = _EpochGraph(spec, n_batches, xs.device)
+            with span("k3.capture"):
+                g = graphs[xs.device] = _EpochGraph(spec, n_batches,
+                                                    xs.device)
         return g.run(fstate, xs, ys, ws, seeds)
 
     run.graphs = graphs

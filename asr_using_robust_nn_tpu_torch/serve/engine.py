@@ -31,6 +31,7 @@ from ..models.convert import params_from_numpy
 from ..models.mlp import MLPConfig, apply_mlp
 from ..ops.mfcc_torch import FrontendConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 __all__ = ["InferenceEngine", "load_checkpoint"]
 
@@ -177,24 +178,39 @@ class InferenceEngine:
         transfer bytes). Returns {"labels": (B,) int64, "probs":
         (B, n_classes) float32, "latency_s": float}. Rows are padded to the
         enclosing bucket and oversized requests run in max-bucket chunks.
+        `latency_s` is what the caller waits for, `_pack` included.
+
+        While a torch profiler records, the call is the span
+        `engine.classify`, holding `engine.pack` and per chunk
+        `engine.bucket` (padding, the enqueue and its host-to-device copy)
+        and `engine.read` (the probabilities to the host)
+        (`utils/profiling.py`).
         """
-        w, lens = self._pack(waves, lengths)
-        n = w.shape[0]
+        with span("engine.classify"):
+            return self._classify(waves, lengths)
+
+    def _classify(self, waves, lengths) -> dict:
         t0 = time.perf_counter()
+        with span("engine.pack"):
+            w, lens = self._pack(waves, lengths)
+        n = w.shape[0]
         cap = self.buckets[-1]
         probs_out = []
         for start in range(0, n, cap):
             chunk, clens = w[start:start + cap], lens[start:start + cap]
             m = chunk.shape[0]
             bucket = next(b for b in self.buckets if b >= m)
-            if m < bucket:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((bucket - m, self.wave_width),
-                                     w.dtype)], 0)
-                clens = np.concatenate(
-                    [clens, np.full((bucket - m,), self.wave_width,
-                                    np.int64)], 0)
-            probs = self._run_bucket(chunk, clens).cpu().numpy()
+            with span("engine.bucket"):
+                if m < bucket:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((bucket - m, self.wave_width),
+                                         w.dtype)], 0)
+                    clens = np.concatenate(
+                        [clens, np.full((bucket - m,), self.wave_width,
+                                        np.int64)], 0)
+                probs = self._run_bucket(chunk, clens)
+            with span("engine.read"):
+                probs = probs.cpu().numpy()
             probs_out.append(probs[:m])
         probs = np.concatenate(probs_out, 0)
         dt = time.perf_counter() - t0

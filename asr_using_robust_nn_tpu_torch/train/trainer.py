@@ -22,6 +22,7 @@ import torch
 
 from ..models.mlp import MLPConfig, apply_mlp, init_mlp, predict_probs
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 __all__ = ["TrainConfig", "Trainer", "Adam", "adam_optimizer", "apply_update",
            "cce_from_logits", "FusedEpochRefused"]
@@ -331,6 +332,7 @@ class Trainer:
                                      self._tensor(y[i: i + bs], torch.int64))
             loss_sum += float(l) * n
             acc_sum += float(a) * n
+            count("trainer.host_reads", 2)
         return loss_sum / len(x), acc_sum / len(x)
 
     def predict(self, params, state, x, batch_size: int | None = None):
@@ -364,7 +366,21 @@ class Trainer:
         acc, val_loss, val_acc (`utils/profiling.py::MetricWriter`). The
         result names the epoch backend that ran ("streaming", "plain" or
         "fused"), the fused epoch's parity verdict (`epoch_gate`: None
-        where no gate ran) and what the checkpoint writes cost."""
+        where no gate ran) and what the checkpoint writes cost.
+
+        While a torch profiler records, the fit opens the spans
+        `trainer.fit` (a new fit id), `trainer.setup`, and per epoch
+        `trainer.dispatch`, `trainer.read`, `trainer.validate` and, on an
+        improvement, `trainer.snapshot`; it counts `trainer.epochs` and
+        `trainer.host_reads` (each blocking device-to-host read: a scalar,
+        or a snapshot's leaf) (`utils/profiling.py`)."""
+        with span("trainer.fit", new_fit=True):
+            return self._fit(train_x, train_y, val_x, val_y, params, state,
+                             opt_state, initial_best_val, checkpoint_dir,
+                             metrics_dir)
+
+    def _fit(self, train_x, train_y, val_x, val_y, params, state, opt_state,
+             initial_best_val, checkpoint_dir, metrics_dir) -> dict:
         cfg = self.cfg
         dev = self.device
         if len(val_x) == 0:
@@ -384,14 +400,18 @@ class Trainer:
         rng = np.random.default_rng(cfg.seed)
         batch_idx = self._batches(len(train_x), rng)
 
-        host = lambda t: t.detach().cpu().clone()  # noqa: E731
+        def host(t):
+            count("trainer.host_reads")
+            return t.detach().cpu().clone()
 
-        def snapshot():
-            return _tree_map(host, self._full_trees(params, state)[:2])
+        def snapshot(full):
+            with span("trainer.snapshot"):
+                return _tree_map(host, full[:2])
 
         best_val = np.inf if initial_best_val is None else float(
             initial_best_val)
-        best = None if initial_best_val is None else snapshot()
+        best = None if initial_best_val is None else snapshot(
+            self._full_trees(params, state))
         wait = 0
         history = {"loss": [], "acc": [], "val_loss": [], "val_acc": []}
         ckpt = writer = None
@@ -408,8 +428,10 @@ class Trainer:
         backend = "streaming"
         gate = None
         if cfg.device_resident:
-            dr = self._device_resident_setup(train_x, train_y, val_x, val_y,
-                                             params, state, fresh_opt)
+            with span("trainer.setup"):
+                dr = self._device_resident_setup(train_x, train_y, val_x,
+                                                 val_y, params, state,
+                                                 fresh_opt)
             backend, gate = dr[-2:]
 
         t0 = time.perf_counter()
@@ -423,41 +445,54 @@ class Trainer:
                 (epoch_fns, make_epoch_fn, eval_fn, d_train, l_train, n_true,
                  d_val, l_val, n_val, _, _) = dr
                 this_stride = min(ep_stride, cfg.epochs - epoch)
-                if this_stride not in epoch_fns:
-                    epoch_fns[this_stride] = make_epoch_fn(this_stride)
-                pg = _generator(dev, cfg.seed, 1,
-                                epoch if cfg.reshuffle_each_epoch else 0)
-                dg = _generator(dev, cfg.seed, 2, epoch)  # fresh dropout
-                params, state, opt_state, cstate, mloss, macc = epoch_fns[
-                    this_stride](params, state, opt_state, cstate, d_train,
-                                 l_train, pg, dg, n_true)
-                ep_loss, ep_acc, ep_n = float(mloss), float(macc), 1.0
+                with span("trainer.dispatch"):
+                    if this_stride not in epoch_fns:
+                        epoch_fns[this_stride] = make_epoch_fn(this_stride)
+                    pg = _generator(dev, cfg.seed, 1,
+                                    epoch if cfg.reshuffle_each_epoch else 0)
+                    dg = _generator(dev, cfg.seed, 2, epoch)  # fresh dropout
+                    params, state, opt_state, cstate, mloss, macc = epoch_fns[
+                        this_stride](params, state, opt_state, cstate,
+                                     d_train, l_train, pg, dg, n_true)
+                with span("trainer.read"):
+                    ep_loss, ep_acc, ep_n = float(mloss), float(macc), 1.0
+                    count("trainer.host_reads", 2)
                 steps += -(-n_true // cfg.batch_size) * this_stride
                 examples_seen += n_true * this_stride
                 epochs_done += this_stride
-                vl, va = eval_fn(params, state, d_val, l_val, n_val)
-                val_loss, val_acc = float(vl), float(va)
+                count("trainer.epochs", this_stride)
+                with span("trainer.validate"):
+                    vl, va = eval_fn(params, state, d_val, l_val, n_val)
+                    val_loss, val_acc = float(vl), float(va)
+                    count("trainer.host_reads", 2)
             else:
                 if cfg.reshuffle_each_epoch:
                     batch_idx = self._batches(len(train_x), rng)
                 # device scalars, read once per epoch
                 losses, accs, ns = [], [], []
-                for bidx in batch_idx:
-                    bx, by = self._place_batch(train_x[bidx], train_y[bidx])
-                    params, state, opt_state, cstate, loss, acc = \
-                        self.train_step(params, state, opt_state, cstate, bx,
-                                        by, drop_gen)
-                    losses.append(loss)
-                    accs.append(acc)
-                    ns.append(len(bidx))
-                    steps += 1
+                with span("trainer.dispatch"):
+                    for bidx in batch_idx:
+                        bx, by = self._place_batch(train_x[bidx],
+                                                   train_y[bidx])
+                        params, state, opt_state, cstate, loss, acc = \
+                            self.train_step(params, state, opt_state, cstate,
+                                            bx, by, drop_gen)
+                        losses.append(loss)
+                        accs.append(acc)
+                        ns.append(len(bidx))
+                        steps += 1
                 w = np.asarray(ns, np.float64)
-                ep_loss = float(torch.stack(losses).cpu().numpy() @ w)
-                ep_acc = float(torch.stack(accs).cpu().numpy() @ w)
+                with span("trainer.read"):
+                    ep_loss = float(torch.stack(losses).cpu().numpy() @ w)
+                    ep_acc = float(torch.stack(accs).cpu().numpy() @ w)
+                    count("trainer.host_reads", 2)
                 ep_n = float(w.sum())
                 examples_seen += int(ep_n)
                 epochs_done += 1
-                val_loss, val_acc = self.evaluate(params, state, val_x, val_y)
+                count("trainer.epochs")
+                with span("trainer.validate"):
+                    val_loss, val_acc = self.evaluate(params, state, val_x,
+                                                      val_y)
             history["loss"].append(ep_loss / ep_n)
             history["acc"].append(ep_acc / ep_n)
             history["val_loss"].append(val_loss)
@@ -483,7 +518,7 @@ class Trainer:
                 full = self._full_trees(
                     params, state,
                     opt_state if checkpoint_dir is not None else None)
-                best = _tree_map(host, full[:2])
+                best = snapshot(full)
                 wait = 0
                 if ckpt is not None:
                     ckpt.save_best(*best, full[2], epoch, val_loss)
@@ -496,7 +531,7 @@ class Trainer:
         if writer is not None:
             writer.close()
         if best is None:
-            best = snapshot()
+            best = snapshot(self._full_trees(params, state))
         return {
             "params": params,
             "state": state,

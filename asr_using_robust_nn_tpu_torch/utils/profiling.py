@@ -1,4 +1,4 @@
-"""Tracing, step timing and metric logging.
+"""Tracing, program spans and counters, and metric logging.
 
 Counterpart of the JAX package's `utils/profiling.py`:
 
@@ -6,10 +6,21 @@ Counterpart of the JAX package's `utils/profiling.py`:
                  card is present, CUDA activity); writes a Chrome trace
                  `trace.json` into `dir` (open it in Perfetto or
                  chrome://tracing)
-  StepTimer      wall-clock steps/s and utterances/s counters
+  span(name)     a program span: while any torch profiler records (`trace`,
+                 a benchmark's own, a user's), a `record_function` of that
+                 name, so the span lands on the trace's timeline beside the
+                 device's kernels, and a row in the span table; else a
+                 shared no-op context after one check
+  count(name, n) a program counter in the same table, while recording
+  recorded()     the table: {"spans": [Span], "counters": {fit: {name: n}}}
+                 (fit None: counts outside any fit)
   MetricWriter   scalar logger: JSONL events {"tag", "value", "step",
                  "time"} in `metrics.jsonl` always, mirrored to TensorBoard
                  through torch.utils.tensorboard where that imports
+
+A span opened with `new_fit=True` (`Trainer.fit`) starts a fit: it and
+every span and count under it carry its fit id. The table is the process's
+own (one trainer thread); `trace` clears it on entry.
 """
 
 from __future__ import annotations
@@ -18,61 +29,124 @@ import contextlib
 import json
 import os
 import time
+from typing import NamedTuple
 
-__all__ = ["trace", "StepTimer", "MetricWriter"]
+import torch
+from torch._C._autograd import _profiler_enabled
+
+__all__ = ["trace", "span", "count", "recorded", "clear", "Span",
+           "MetricWriter"]
+
+
+class Span(NamedTuple):
+    """One recorded span: `parent` is the index of the span that held it
+    in `recorded()["spans"]` (None at a root), `fit` the fit it belongs to
+    (None outside any fit); times are `time.perf_counter_ns()`, `end_ns`
+    None while the span is open."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int | None
+    fit: int | None
+
+
+class _Table:
+    def __init__(self):
+        self.fits = 0  # fit ids stay unique across clear()
+        self.clear()
+
+    def clear(self):
+        self.spans: list[Span] = []
+        self.open: list[int] = []  # indices into `spans`, innermost last
+        self.counters: dict[int | None, dict[str, int]] = {}
+
+
+_TABLE = _Table()
+
+
+class _On:
+    """A span while a profiler records."""
+
+    __slots__ = ("name", "new_fit", "rf", "i")
+
+    def __init__(self, name: str, new_fit: bool):
+        self.name = name
+        self.new_fit = new_fit
+
+    def __enter__(self):
+        t = _TABLE
+        parent = t.open[-1] if t.open else None
+        if self.new_fit:
+            t.fits += 1
+            fit = t.fits
+        else:
+            fit = None if parent is None else t.spans[parent].fit
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.i = len(t.spans)
+        t.spans.append(Span(self.name, time.perf_counter_ns(), None, parent,
+                            fit))
+        t.open.append(self.i)
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        t = _TABLE
+        if t.open and t.open[-1] == self.i:  # not cleared while open
+            t.open.pop()
+            t.spans[self.i] = t.spans[self.i]._replace(end_ns=end)
+        return self.rf.__exit__(*exc)
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, new_fit: bool = False):
+    """A program span named `name` (see the module's docstring)."""
+    if not _profiler_enabled():
+        return _OFF
+    return _On(name, new_fit)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of the open fit (None outside any
+    fit), while a profiler records."""
+    if not _profiler_enabled():
+        return
+    t = _TABLE
+    mine = t.counters.setdefault(
+        t.spans[t.open[-1]].fit if t.open else None, {})
+    mine[name] = mine.get(name, 0) + n
+
+
+def recorded() -> dict:
+    """A copy of the span and counter table."""
+    t = _TABLE
+    return {"spans": list(t.spans),
+            "counters": {k: dict(v) for k, v in t.counters.items()}}
+
+
+def clear() -> None:
+    """Empty the span and counter table."""
+    _TABLE.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler scope; on exit the trace is written to
-    `<log_dir>/trace.json`."""
-    import torch
+    `<log_dir>/trace.json`. The span table is cleared on entry, so that
+    `recorded()` afterwards holds this trace's spans."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    clear()
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Throughput accounting: call tick(n_examples) once per step."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.t0 = time.perf_counter()
-        self.steps = 0
-        self.examples = 0
-
-    def tick(self, n_examples: int):
-        self.steps += 1
-        self.examples += n_examples
-
-    @property
-    def seconds(self) -> float:
-        return time.perf_counter() - self.t0
-
-    @property
-    def steps_per_sec(self) -> float:
-        return self.steps / max(self.seconds, 1e-9)
-
-    @property
-    def examples_per_sec(self) -> float:
-        return self.examples / max(self.seconds, 1e-9)
-
-    def summary(self) -> dict:
-        return {
-            "steps": self.steps,
-            "examples": self.examples,
-            "seconds": self.seconds,
-            "steps_per_sec": self.steps_per_sec,
-            "utterances_per_sec": self.examples_per_sec,
-        }
 
 
 class MetricWriter:
