@@ -122,7 +122,7 @@ class _CudaStepOps(_CudaOps):
     def project(self, fs, sc):
         spec, m = self.spec, self.spec.n_layers
         pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"],
-                  spec.pi_iters, _EPS)
+                  spec.pi_iters, _EPS, dims=spec.dims)
         self.launched += 1
         ws = (ctypes.c_void_p * m)(*[w.data_ptr() for w in fs["w16"]])
         ns = (ctypes.c_longlong * m)(*[w.numel() for w in fs["w16"]])

@@ -927,7 +927,7 @@ class _CudaOps(_ComposedOps):
     def project(self, fs, sc):
         pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"],
                   self.spec.pi_iters, _EPS, rho=self.spec.rho,
-                  masters=list(fs["masters"]))
+                  masters=list(fs["masters"]), dims=self.spec.dims)
         self.launched += 1
 
     def count_add(self, count, n):

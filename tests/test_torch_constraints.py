@@ -3,9 +3,11 @@
 ops/cuda_spectral.py) against the JAX package: the same numpy kernels and
 start vector through both.
 
-K2 itself runs only on a card and is held against its twin by
-`chip_smoke.py`; on CPU tensors its wrapper is the twin, which is what these
-tests reach.
+K2 itself runs only on a card and is held against its twins by
+`chip_smoke.py` and the card tests of `tests/test_torch_kernels.py`; on CPU
+tensors its wrapper is the chain's twin, and the product form's twin and the
+host side of the launch (the plan, the arguments handed to the C entry) are
+what these tests reach.
 """
 
 import jax
@@ -147,7 +149,8 @@ def test_backends_agree_on_cpu_and_bad_backend_raises():
 # -- K2's cluster launch: the host-side partition plan and its ordered twin --
 
 from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import (  # noqa: E402
-    CLUSTER_SIZE, SMEM_MAX, pi_plan, product_spectral_norm_partitioned)
+    CLUSTER_SIZE, SMEM_MAX, pi_plan, product_spectral_norm_gram,
+    product_spectral_norm_partitioned)
 
 PLAN_CHAINS = {
     "digit": (880, 1024, 512, 256, 128, 64, 10),
@@ -241,25 +244,225 @@ def test_partitioned_twin_matches_twin_pallas_and_xla(rng, n_iter, bf16,
         np.testing.assert_allclose(u.numpy(), np.asarray(u_ref), atol=bar)
 
 
-@pytest.mark.parametrize("chain", ["digit", "speaker", "width_8192", "odd"])
-def test_partitioned_twin_at_real_widths(chain):
-    """At widths where the partition is not trivial (many blocks own rows,
-    trailing blocks own none), bf16 and fp32, against the plain twin."""
-    dims = PLAN_CHAINS[chain]
+def _real_stack(dims, signed=False):
+    """NonNeg-like kernels (|N(0, 1)| * 0.05; N(0, 1) * 0.05 if `signed`) of
+    widths `dims` and a start vector, seeded by the chain's length."""
     rng = np.random.default_rng(len(dims))
-    ws = [torch.from_numpy(np.abs(rng.standard_normal((a, b)))
+    ws = [torch.from_numpy((rng.standard_normal((a, b)) if signed else
+                            np.abs(rng.standard_normal((a, b))))
                            .astype(np.float32) * 0.05)
           for a, b in zip(dims[:-1], dims[1:])]
-    u0 = torch.from_numpy(rng.standard_normal(dims[-1]).astype(np.float32))
-    for bf16, bar in ((True, 5e-3), (False, 1e-4)):
-        for cluster in (8, 16):
-            sig, u = product_spectral_norm_partitioned(ws, u0, 4, EPS, bf16,
-                                                       cluster)
-            sig_t, u_t = product_spectral_norm_with_state(
-                ws, u0, n_iter=4, eps=EPS,
-                matvec_dtype=torch.bfloat16 if bf16 else None)
-            np.testing.assert_allclose(float(sig), float(sig_t), rtol=bar)
-            np.testing.assert_allclose(u.numpy(), u_t.numpy(), atol=bar)
+    return ws, torch.from_numpy(rng.standard_normal(dims[-1])
+                                .astype(np.float32))
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("chain", ["digit", "speaker", "width_8192", "odd"])
+def test_partitioned_twin_at_real_widths(chain, bf16, cluster):
+    """At widths where the partition is not trivial (many blocks own rows,
+    trailing blocks own none), bf16 and fp32, against the plain twin."""
+    ws, u0 = _real_stack(PLAN_CHAINS[chain])
+    bar = 5e-3 if bf16 else 1e-4
+    sig, u = product_spectral_norm_partitioned(ws, u0, 4, EPS, bf16, cluster)
+    sig_t, u_t = product_spectral_norm_with_state(
+        ws, u0, n_iter=4, eps=EPS,
+        matvec_dtype=torch.bfloat16 if bf16 else None)
+    np.testing.assert_allclose(float(sig), float(sig_t), rtol=bar)
+    np.testing.assert_allclose(u.numpy(), u_t.numpy(), atol=bar)
+
+
+# -- K2's product form: the choice of form, its twin, its fmaf, its launch -----
+
+PADDED_TRUE = {"digit_padded": "digit"}  # K3's buffers and their true widths
+
+
+@pytest.mark.parametrize("chain", PLAN_CHAINS)
+def test_pi_plan_picks_the_form_from_the_widths(chain):
+    """The product (Gram) form for every chain that ends at 32 or fewer
+    classes and whose two fp32 copies of R fit a block, the chain form for
+    the 8192-wide chains; K3's padded buffers take the product form at
+    their true widths and the chain form at the padded ones. A plan of the
+    product form keeps no layer resident and fits SMEM_MAX."""
+    dims = PLAN_CHAINS[chain]
+    want = chain not in ("width_8192", "square_8192", "digit_padded")
+    for wbf16 in (True, False):
+        plan = pi_plan(dims, CLUSTER_SIZE, wbf16)
+        assert plan.gram == want
+        if plan.gram:
+            assert not any(plan.resident) and set(plan.res_off) == {-1}
+            assert plan.rrows == max((plan.per[0],) + dims[1:-1])
+            assert plan.smem_bytes <= SMEM_MAX
+    if chain in PADDED_TRUE:
+        assert pi_plan(PLAN_CHAINS[PADDED_TRUE[chain]]).gram
+
+
+def test_pi_plan_form_does_not_depend_on_n_iter(monkeypatch, tmp_path):
+    """pi_plan takes no n_iter, and pi_launch hands the C entry the same
+    form at 4 rounds (the parity gate's K3) and 16 (the fits'): K3's padded
+    buffers at the true widths, with their row strides, their sizes for the
+    rescale and u's whole length. Each launch counts its form once while a
+    profiler records."""
+    import contextlib
+    import inspect
+    import types
+
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig
+    from asr_using_robust_nn_tpu_torch.ops import cuda_spectral as cs
+    from asr_using_robust_nn_tpu_torch.ops.cuda_train import FusedStepSpec
+    from asr_using_robust_nn_tpu_torch.utils import profiling
+
+    assert "n_iter" not in inspect.signature(pi_plan).parameters
+    calls = []
+
+    def run(ws, dims, ld, numel, m, wbf16, u_in, u_out, u_len, sigma, n_iter,
+            eps, rho, inv_m, masters, cluster, gram, per, res_off, smem,
+            stream):
+        calls.append(dict(dims=tuple(dims[:m + 1]), ld=tuple(ld[:m]),
+                          numel=tuple(numel[:m]), u_len=u_len, gram=gram,
+                          n_iter=n_iter, smem=smem))
+        return 0
+
+    monkeypatch.setattr(cs, "_lib", lambda: types.SimpleNamespace(
+        asr_pi_run=run))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    spec = FusedStepSpec(cfg=MLPConfig.speaker_constrained(), batch=64,
+                         rho=1.0, pi_iters=16)
+    pd = spec.pdims
+    w16 = [torch.zeros((a, b), dtype=torch.bfloat16)
+           for a, b in zip(pd[:-1], pd[1:])]
+    u, sg = torch.zeros((1, pd[-1])), torch.zeros(1)
+    with profiling.trace(str(tmp_path)):
+        for n_iter in (4, 16):
+            cs.pi_launch(w16, u, u, sg, n_iter, dims=spec.dims)
+        cs.pi_launch(w16, u, u, sg, 4)  # the padded widths: the chain form
+        counters = profiling.recorded()["counters"][None]
+    assert [c["n_iter"] for c in calls] == [4, 16, 4]
+    assert [c["gram"] for c in calls] == [1, 1, 0]
+    assert calls[0]["dims"] == spec.dims and calls[2]["dims"] == pd
+    for c in calls:
+        assert c["ld"] == pd[1:]
+        assert c["numel"] == tuple(a * b for a, b in zip(pd[:-1], pd[1:]))
+        assert c["u_len"] == pd[-1]
+    assert calls[0]["smem"] == pi_plan(spec.dims).smem_bytes
+    assert counters == {"k2.gram": 2, "k2.chain": 1}
+
+
+GRAM_CHAINS = ["digit", "speaker", "width_10", "width_8192", "odd",
+               "odd_signed"]
+
+
+def _oracle(ws, u0, n_iter, bf16):
+    """The iteration as written (the chain), in float64 on the kernels as
+    the kernel reads them (bf16-rounded in bf16 mode)."""
+    w64 = [(w.to(torch.bfloat16) if bf16 else w).double().numpy()
+           for w in ws]
+
+    def nrm(v):
+        return v / (np.sqrt(v @ v) + EPS)
+
+    def pt(x):
+        for w in reversed(w64):
+            x = w @ x
+        return x
+
+    def p(x):
+        for w in w64:
+            x = w.T @ x
+        return x
+
+    u = nrm(u0.double().numpy())
+    for _ in range(n_iter):
+        u = nrm(p(nrm(pt(u))))
+    q = np.eye(len(u))
+    for w in reversed(w64):
+        q = w @ q
+    g = q.T @ q  # the Gram; how many times u^T G u its terms' sizes add to
+    spread = float(np.abs(u) @ np.abs(g) @ np.abs(u)) / float(u @ g @ u)
+    return float(u @ p(nrm(pt(u)))), u, spread
+
+
+@pytest.mark.parametrize("n_iter", [0, 4, 16])
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("chain", GRAM_CHAINS)
+def test_gram_twin_against_the_chain_and_the_oracle(chain, bf16, n_iter):
+    """The product form's twin (the kernel's partition, split order and
+    rank-order sums, fmaf rounded once) against the float64 iteration: 1e-6
+    in sigma and u at the digit and speaker widths and every other chain of
+    PLAN_CHAINS that runs in seconds here (square_8192's first link is 8192
+    x 8192 x 10 emulated fmaf). From a cold start (n_iter 0) u^T G u is a
+    sum whose terms add to `spread` times its value (~300 at the speaker
+    stack), and fp32's G carries that into sigma: the bar is 1e-6 x spread,
+    and after a round u leans on the top singular vector and spread is near
+    1 (1.00-1.03 here). Against the chain's twin, which rounds the vector to
+    bf16 before every link, at the chain's own bars; on signed kernels
+    (`odd_signed`) that rounding moves the chain's u further, so there sigma
+    alone."""
+    signed = chain.endswith("_signed")
+    ws, u0 = _real_stack(PLAN_CHAINS[chain.removesuffix("_signed")], signed)
+    sig, u = product_spectral_norm_gram(ws, u0, n_iter, EPS, bf16)
+    s_o, u_o, spread = _oracle(ws, u0, n_iter, bf16)
+    assert abs(float(sig) / s_o - 1.0) <= 1e-6 * spread
+    np.testing.assert_allclose(u.double().numpy(), u_o, atol=1e-6)
+    sig_t, u_t = product_spectral_norm_with_state(
+        ws, u0, n_iter=n_iter, eps=EPS,
+        matvec_dtype=torch.bfloat16 if bf16 else None)
+    bar = 5e-3 if bf16 else 1e-4
+    np.testing.assert_allclose(float(sig), float(sig_t), rtol=bar)
+    if not signed:
+        np.testing.assert_allclose(u.numpy(), u_t.numpy(), atol=bar)
+
+
+def _round_once(x):
+    """The float32 nearest the rational x, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(c.view(np.uint32)) & 1))
+
+
+@pytest.mark.parametrize("kind", ["random", "near_ties"])
+def test_gram_twin_fmaf_rounds_once(kind):
+    """The twin's fmaf against exact rational arithmetic: random triples,
+    and triples whose float64 sum lands exactly halfway between two floats
+    while the exact sum does not (1 + m 2^-23 + 2^-24 a' b' with a' b' within
+    2^-29 of 1), where rounding the float64 sum would be off by one ulp."""
+    from fractions import Fraction
+
+    from asr_using_robust_nn_tpu_torch.ops.cuda_spectral import _fma
+
+    rng = np.random.default_rng(3)
+    if kind == "random":
+        a = rng.standard_normal(3000).astype(np.float32)
+        b = rng.standard_normal(3000).astype(np.float32)
+        c = rng.standard_normal(3000).astype(np.float32)
+    else:
+        a1 = (1 + rng.integers(1, 2 ** 23, 200000) / 2 ** 23).astype(
+            np.float32)
+        b1 = (1 / a1.astype(np.float64)).astype(np.float32)
+        near = np.abs(a1.astype(np.float64) * b1 - 1) < 2.0 ** -29
+        a = (a1[near] * np.float32(2.0 ** -24)).astype(np.float32)
+        b = b1[near]
+        c = (1 + rng.integers(0, 2 ** 23, a.shape[0]) / 2 ** 23).astype(
+            np.float32)
+        s64 = a.astype(np.float64) * b + c
+        ties = s64 == c.astype(np.float64) + 2.0 ** -24
+        assert ties.sum() > 50  # the float64 sum lands on a tie
+    got = _fma(torch.from_numpy(a), torch.from_numpy(b),
+               torch.from_numpy(c)).numpy()
+    want = np.array([_round_once(Fraction(float(x)) * Fraction(float(y))
+                                 + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    if kind == "near_ties":
+        naive = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert (naive != want).any()  # the case the tie rule is for
 
 
 # -- the other three algorithms: norm, custom, fista ----------------------------
