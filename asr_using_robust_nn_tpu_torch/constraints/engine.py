@@ -15,7 +15,8 @@ after the Adam update and the NonNeg clamp:
   3. make_fista_constraint       FISTA projection of each kernel so that the
                                  whole-network product A W B has singular
                                  values <= rho (two SVDs an iteration,
-                                 cuSOLVER on the card)
+                                 cuSOLVER on the card); in the fused epoch
+                                 (K3) it runs as K7, ops/cuda_fista.py
   4. make_simple_norm_constraint scale every kernel by
                                  (rho / ||W_m^T ... W_1^T||_2)^(1/m), the
                                  product norm by K2 on a CUDA tensor
@@ -196,6 +197,11 @@ def make_fista_constraint(rho: float, nit: int = 2,
                 ws[i] = _fista_project(ws[i].T, a, b, rho, nit, alpha).T
         return set_dense_kernels(params, ws), cstate
 
+    # what the trainer's "auto" epoch backend reads to recognize the
+    # projection that the fused epoch (K3 with K7) implements
+    apply._asrtpu_kind = "fista"
+    apply._asrtpu_meta = {"rho": float(rho), "nit": int(nit),
+                          "alpha": float(alpha)}
     return Constraint(init=lambda params: (), apply=apply)
 
 

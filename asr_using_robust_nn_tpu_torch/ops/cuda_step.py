@@ -252,7 +252,11 @@ def build_fused_step(spec: FusedStepSpec):
     in ~40 small copies). `step.chain(fstate, xs, ys, ws, seeds)` ->
     (fstate', losses (n,), accs (n,)) pays those copies once for n steps and
     never synchronizes with the host between steps. `step.graphs` maps each
-    device to its `_StepGraph`."""
+    device to its `_StepGraph`. The FISTA projection (`spec.fista`) has no
+    deferred form and is refused (ValueError): K3 runs it."""
+    if spec.fista:
+        raise ValueError("the fused step (K6) defers simple_norm's scales; "
+                         "FISTA runs in the fused epoch (K3)")
     graphs: dict = {}
 
     def graph(device):

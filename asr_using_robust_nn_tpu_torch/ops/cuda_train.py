@@ -11,8 +11,9 @@ state both run on. Counterpart of the JAX package's `ops/pallas_train.py`
       kernel rounds: bf16 GEMM operands summed in fp32, activations and x^
       stored in bf16, dZ cast to bf16 before the dW and dX products.
   build_fused_epoch_call(spec, n_batches) -> run(fstate, xs, ys, ws, seeds)
-      CUDA tensors: csrc/fused_epoch.cu's kernels (and K2's for the
-      projection) for all n_batches steps, captured once per (spec,
+      CUDA tensors: csrc/fused_epoch.cu's kernels (and, for the projection,
+      K2's under simple_norm or K7's, ops/cuda_fista.py, under FISTA) for
+      all n_batches steps, captured once per (spec,
       n_batches, device) into one CUDA graph and replayed per call; CPU
       tensors: `fused_epoch_plain`.
   build_fused_epoch_fn(spec, ...)
@@ -48,12 +49,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constraints import make_simple_norm_constraint
+from ..constraints import make_fista_constraint, make_simple_norm_constraint
 from ..models.mlp import MLPConfig, init_mlp
 from ..train.epoch_scan import build_epoch_fn, shuffle_batches
 from ..train.trainer import _generator, adam_optimizer
 from ..utils.profiling import span
 from ._build import load_library
+from .cuda_fista import (fista_launch, fista_preload, fista_project_twin,
+                         fista_scratch, fista_state)
 from .cuda_spectral import pi_launch, preload
 from .spectral import product_spectral_norm_with_state
 
@@ -85,8 +88,15 @@ class FusedStepSpec:
     cfg: MLPConfig
     batch: int
     lr: float = 1e-3
-    rho: float | None = None     # simple_norm strength; None = no constraint
-    pi_iters: int = 4            # power-iteration rounds per step
+    rho: float | None = None     # the projection's rho; None = no constraint
+    pi_iters: int = 4            # simple_norm: power-iteration rounds a step
+    # the projection after each step: "simple_norm" (K2: every kernel scaled
+    # by (rho / ||W_m^T ... W_1^T||_2)^(1/m)) or "fista" (K7: the FISTA
+    # projection of make_fista_constraint(rho, nit, alpha), on the fp32
+    # masters); `nit` and `alpha` are FISTA's
+    projection: str = "simple_norm"
+    nit: int = 2
+    alpha: float = 2.1
     # The backward ReLU mask is x^ > -mu * sdinv with x^ stored in bf16. The
     # threshold is rounded to bf16 too, so a dead unit (a = 0, x^ exactly
     # the threshold) stays masked, and a live unit whose x^ would round onto
@@ -96,6 +106,16 @@ class FusedStepSpec:
     # units round above it and pass gradient. Only the plain twin has this
     # switch (the tests hold it against that kernel); K3 refuses it.
     pallas_relu_mask: bool = False
+
+    def __post_init__(self):
+        if self.projection not in ("simple_norm", "fista"):
+            raise ValueError(f"unknown projection {self.projection!r} "
+                             f"(simple_norm, fista)")
+
+    @property
+    def fista(self) -> bool:
+        """Whether each step ends with K7's FISTA projection."""
+        return self.rho is not None and self.projection == "fista"
 
     @property
     def dims(self) -> tuple[int, ...]:
@@ -123,7 +143,10 @@ def pack_state(spec: FusedStepSpec, params: dict, state: dict) -> dict:
     """(params, state) -> the padded fstate on the params' device. Adam
     moments and `count` start at 0, `scales` at 1; `u` is drawn from a
     torch.Generator seeded 23 (JAX draws from PRNGKey(23); its values
-    differ, models/convert.py carries a JAX-packed u across)."""
+    differ, models/convert.py carries a JAX-packed u across). Under FISTA
+    (`spec.fista`) it also holds K7's power vectors `fista_v`, the
+    eigenvectors its Jacobi starts from `fista_u` and its counters `fista_n`
+    (ops/cuda_fista.py::fista_state)."""
     dev = params["layers"][0]["w"].device
     pd, m = spec.pdims, spec.n_layers
     masters = []
@@ -152,7 +175,7 @@ def pack_state(spec: FusedStepSpec, params: dict, state: dict) -> dict:
         small["m_" + k] = torch.zeros_like(small[k])
         small["v_" + k] = torch.zeros_like(small[k])
     gen = torch.Generator(device=dev).manual_seed(23)
-    return {
+    fs = {
         "masters": tuple(masters),
         "w16": tuple(w.to(_BF16) for w in masters),
         "mw": tuple(torch.zeros_like(w) for w in masters),
@@ -162,6 +185,15 @@ def pack_state(spec: FusedStepSpec, params: dict, state: dict) -> dict:
         "u": torch.randn((1, pd[-1]), generator=gen, device=dev),
         "count": torch.zeros((1,), dtype=torch.int32, device=dev),
     }
+    return _with_fista_state(spec, fs, dev)
+
+
+def _with_fista_state(spec: FusedStepSpec, fs: dict, dev) -> dict:
+    if spec.fista:
+        st = fista_state(spec.dims, dev)
+        fs["fista_v"], fs["fista_u"], fs["fista_n"] = (st["v"], st["u"],
+                                                       st["n"])
+    return fs
 
 
 def unpack_params(spec: FusedStepSpec, fstate: dict) -> tuple[dict, dict]:
@@ -439,10 +471,10 @@ def _scratch(spec: FusedStepSpec, device) -> dict:
     `z` and `da` (fp32) are touched only where BN runs as separate kernels
     (and by the twin); `dzb` alternates between two buffers because a
     layer's dZ is still read by its dW product when the dZ of the layer
-    below is written."""
+    below is written. Under FISTA, K7's scratch under `fista_<name>`."""
     B, pd, m, dmax = spec.batch, spec.pdims, spec.n_layers, spec.dmax
     f32 = dict(dtype=torch.float32, device=device)
-    return {
+    sc = {
         "acts": [torch.empty((B, pd[i]), dtype=_BF16, device=device)
                  for i in range(m)],
         "xhats": [torch.empty((B, pd[i + 1]), dtype=_BF16, device=device)
@@ -458,6 +490,19 @@ def _scratch(spec: FusedStepSpec, device) -> dict:
         "ce_part": torch.zeros(-(-B // _CE_ROWS) * (pd[-1] + 2), **f32),
         "ce_ticket": torch.zeros(1, dtype=torch.int32, device=device),
     }
+    if spec.fista:
+        sc.update({"fista_" + k: v for k, v in fista_scratch(
+            spec.dims, device).items()})
+    return sc
+
+
+def _fista_scratch_of(sc: dict) -> dict:
+    return {k[len("fista_"):]: v for k, v in sc.items()
+            if k.startswith("fista_")}
+
+
+def _fista_state_of(fs: dict) -> dict:
+    return {"v": fs["fista_v"], "u": fs["fista_u"], "n": fs["fista_n"]}
 
 
 def _step(ops, spec, fs, sc, x, y, w, seeds, s, losses, accs):
@@ -705,6 +750,11 @@ class _PlainOps(_ComposedOps):
 
     def project(self, fs, sc):
         spec = self.spec
+        if spec.fista:
+            fista_project_twin(list(fs["masters"]), list(fs["w16"]),
+                               _fista_state_of(fs), spec.dims, spec.rho,
+                               spec.nit, spec.alpha, spec.cfg.nonneg)
+            return
         m = spec.n_layers
         sigma, u = product_spectral_norm_with_state(
             [w.float() for w in fs["w16"]], fs["u"][0], n_iter=spec.pi_iters,
@@ -925,6 +975,14 @@ class _CudaOps(_ComposedOps):
             self.plan["dw"][i].dims(), self._stream()))
 
     def project(self, fs, sc):
+        spec = self.spec
+        if spec.fista:
+            fista_launch(list(fs["masters"]), list(fs["w16"]),
+                         _fista_state_of(fs), _fista_scratch_of(sc),
+                         spec.dims, spec.rho, spec.nit, spec.alpha,
+                         spec.cfg.nonneg)
+            self.launched += 1
+            return
         pi_launch(list(fs["w16"]), fs["u"], fs["u"], sc["sigma"],
                   self.spec.pi_iters, _EPS, rho=self.spec.rho,
                   masters=list(fs["masters"]), dims=self.spec.dims)
@@ -939,19 +997,25 @@ class _CudaOps(_ComposedOps):
 # the epoch call: plain twin on the CPU, one CUDA graph per epoch on a card
 # --------------------------------------------------------------------------
 
+# K7's part of the state, present under FISTA only
+_FISTA_KEYS = ("fista_v", "fista_u", "fista_n")
+
+
 def _state_map(fn, fs: dict) -> dict:
     out = {k: tuple(fn(t) for t in fs[k])
            for k in ("masters", "w16", "mw", "vw")}
     out["small"] = {k: fn(fs["small"][k]) for k in _SMALL_KEYS}
-    for k in ("scales", "u", "count"):
-        out[k] = fn(fs[k])
+    for k in ("scales", "u", "count") + _FISTA_KEYS:
+        if k in fs:
+            out[k] = fn(fs[k])
     return out
 
 
 def _state_leaves(fs: dict) -> list:
     return ([t for k in ("masters", "w16", "mw", "vw") for t in fs[k]]
             + [fs["small"][k] for k in _SMALL_KEYS]
-            + [fs["scales"], fs["u"], fs["count"]])
+            + [fs["scales"], fs["u"], fs["count"]]
+            + [fs[k] for k in _FISTA_KEYS if k in fs])
 
 
 def _epoch_inputs(spec, xs, ys, ws, seeds):
@@ -1009,6 +1073,8 @@ class _EpochGraph:
             self.sc = _scratch(spec, device)
             preload_kernels(ops.lib)
             preload()
+            if spec.fista:
+                fista_preload(spec.dims)
             torch.cuda.synchronize(device)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
@@ -1039,13 +1105,13 @@ def _template_state(spec: FusedStepSpec) -> dict:
     """A zero fstate on the CPU with the packed shapes and dtypes."""
     pd, m = spec.pdims, spec.n_layers
     masters = tuple(torch.zeros((pd[i], pd[i + 1])) for i in range(m))
-    return {
+    return _with_fista_state(spec, {
         "masters": masters, "w16": tuple(w.to(_BF16) for w in masters),
         "mw": masters, "vw": masters,
         "small": {k: torch.zeros((m, spec.dmax)) for k in _SMALL_KEYS},
         "scales": torch.ones((1, _LANE)), "u": torch.zeros((1, pd[-1])),
         "count": torch.zeros((1,), dtype=torch.int32),
-    }
+    }, "cpu")
 
 
 def build_fused_epoch_call(spec: FusedStepSpec, n_batches: int):
@@ -1218,11 +1284,14 @@ def _wall(dev) -> float:
 
 def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
                           n_true: int, seeds: tuple[int, int] = (7, 3),
-                          candidate=None) -> dict:
+                          candidate=None, projection=None) -> dict:
     """The gate the trainer runs, once per process and configuration,
     before it trains with K3; it raises where the gate fails. One dropout-0
-    epoch from one init (`seeds[0]`) and one permutation (`seeds[1]`), rho
-    0.1 and 4 power-iteration rounds, on the caller's rows: `data` (N_pad,
+    epoch from one init (`seeds[0]`) and one permutation (`seeds[1]`) under
+    the projection: `projection` None is simple_norm at rho 0.1 with 4
+    power-iteration rounds (every simple_norm or unconstrained fit), and
+    ("fista", rho, nit, alpha) is K7 against make_fista_constraint(rho, nit,
+    alpha) in the plain epoch; on the caller's rows: `data` (N_pad,
     in_dim) float32 on the device, row padded to a multiple of `batch`, and
     `labels` (N_pad,), of which the first `n_true` are real. Two parts, and
     the gate fails where either does:
@@ -1267,6 +1336,15 @@ def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
     at most 1.00 ulp (a single bf16 rounding), and it refuses each fault of
     `tools/gate_faults.py` at the operation that holds it.
 
+    Under FISTA (`projection=("fista", 5, 2, 2.1)`) the same bars hold, read
+    on the same card on the digit benchmark corpus (h100bench's
+    `digit_fista.train`), two draws: params 3.06e-2 / 2.83e-2 against
+    0.066, layer-0 BN mean 1.69e-3 / 8.4e-4 against 6e-3, loss 1.6e-4 /
+    8.7e-5 and accuracy 6.0e-4 / 6.0e-5 against 3e-2, the lockstep at most
+    1.00 ulp (K7 and its twin's projected masters within rounding); faults
+    a-f and `FISTA_FAULTS` g (gamma doubled, refused at step 0's
+    projection) are refused.
+
     `candidate(spec)` -> a set of the step's operations runs in K3's place
     in both parts (`tools/gate_faults.py` plants faults); default: K3's
     kernels on a card, the wrapper's twin on the CPU. Returns {"ok", the
@@ -1283,11 +1361,17 @@ def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
     t = [_wall(dev)]
     cfg0 = dataclasses.replace(mcfg, dropout=(0.0,) * len(mcfg.dropout))
     params, state = init_mlp(cfg0, _generator(dev, seeds[0]), device=dev)
-    spec = FusedStepSpec(cfg=cfg0, batch=_pad_to(batch, _TILE), rho=0.1,
-                         pi_iters=4)
+    if projection is None:
+        spec = FusedStepSpec(cfg=cfg0, batch=_pad_to(batch, _TILE), rho=0.1,
+                             pi_iters=4)
+        con = make_simple_norm_constraint(0.1, n_iter=4, pi_backend="plain")
+    else:
+        kind, rho, nit, alpha = projection
+        spec = FusedStepSpec(cfg=cfg0, batch=_pad_to(batch, _TILE), rho=rho,
+                             projection=kind, nit=nit, alpha=alpha)
+        con = make_fista_constraint(rho, nit=nit, alpha=alpha)
     fs = pack_state(spec, params, state)
 
-    con = make_simple_norm_constraint(0.1, n_iter=4, pi_backend="plain")
     opt = adam_optimizer(1e-3, "float32")
     ep_plain = build_epoch_fn(cfg0.with_bf16(), opt, constraint=con.apply,
                               batch_size=batch, epochs_per_call=1,
@@ -1311,6 +1395,8 @@ def epoch_parity_vs_plain(mcfg: MLPConfig, batch: int, data, labels,
         if isinstance(cand, _CudaOps):
             preload_kernels(cand.lib)
             preload()
+            if spec.fista:
+                fista_preload(spec.dims)
         fs_c, losses, accs = fused_epoch_plain(spec, fs, *batches, ops=cand)
     ns = ws.sum(1)
     loss_f = float(torch.sum(losses[:, 0] * ns) / ns.sum())

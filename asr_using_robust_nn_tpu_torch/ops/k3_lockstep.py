@@ -36,6 +36,7 @@ from ..models.mlp import init_mlp
 from ..train.epoch_scan import shuffle_batches
 from ..train.trainer import _generator
 from . import cuda_train as ct
+from .cuda_fista import fista_preload
 from .cuda_spectral import preload
 
 __all__ = ["K3TwinLockstep", "LOCKSTEP_PARAMS", "k3_twin_lockstep",
@@ -48,7 +49,7 @@ __all__ = ["K3TwinLockstep", "LOCKSTEP_PARAMS", "k3_twin_lockstep",
 # computes is held to one bf16 ulp of its operands' scale, the projection's
 # factors and NonNeg's negative part included.
 LOCKSTEP_PARAMS = ("Adam m", "Adam v", "master after NonNeg", "w16", "gamma",
-                   "beta", "b", "sigma", "u")
+                   "beta", "b", "sigma", "u", "FISTA v")
 
 
 def _bf16_reading(k3, twin, scale=None):
@@ -107,7 +108,9 @@ class K3TwinLockstep:
     Adam operation on zero moments, whose m' is (1 - b1) dW), Adam's m and
     v, the fp32 master after NonNeg, its negative part (a NonNeg model) and
     its bf16 copy; the projection's factor f per layer, sigma = rho / f^m
-    and the power-iteration vector u."""
+    and the power-iteration vector u; under FISTA (K7) each projected
+    master, the FISTA iterations the step ran (exact: the exit tests agree)
+    and K7's power vectors."""
 
     def __init__(self, spec, candidate=None, held=None):
         self.spec = spec
@@ -117,6 +120,8 @@ class K3TwinLockstep:
         if self.cuda:
             ct.preload_kernels(self.k3.lib)
             preload()
+            if spec.fista:
+                fista_preload(spec.dims)
             plain = dict(cluster=(1, 1, 1), cluster_axis=None,
                          bn_in_epilogue=False)
             plan = self.k3.plan
@@ -145,6 +150,7 @@ class K3TwinLockstep:
         w.update({f"small.{k}": t for k, t in fs["small"].items()})
         w.update(u=fs["u"], count=fs["count"], scales=fs["scales"],
                  losses=losses, accs=accs)
+        w.update({k: fs[k] for k in ct._FISTA_KEYS if k in fs})
         for k, v in sc.items():
             if isinstance(v, list):
                 w.update({f"{k}[{i}]": t for i, t in enumerate(v)})
@@ -341,6 +347,15 @@ class K3TwinLockstep:
     @_held
     def project(self, fs, sc):
         m = self.spec.n_layers
+        if self.spec.fista:
+            def read_fista(b):
+                out = {f"projected W{i}": fs["masters"][i] for i in range(m)}
+                out["FISTA iterations"] = (fs["fista_n"][1:2] - b["fista_n"][
+                    1:2], 1.0)
+                out["FISTA v"] = fs["fista_v"]
+                return out
+
+            return self._both("projection", "project", (fs, sc), read_fista)
 
         def read(b):
             f = torch.stack([

@@ -15,7 +15,12 @@ operation:
   c  padded rows (weight 0) counted with weight 1 in the BN moments;
   d  simple_norm's per-layer exponent 1/(m - 1) in place of 1/m;
   e  the CE gradient without its 1/sum(w);
-  f  NonNeg's clamp skipped on layer 0.
+  f  NonNeg's clamp skipped on layer 0;
+
+and, for the gate of a FISTA fit (`projection=("fista", ...)`), the faults
+of `FISTA_FAULTS`:
+
+  g  K7's step size gamma doubled.
 
 On a card each runs as K3's kernels with the one operation of `_step` that
 holds the fault (`CARD_OPS`) taken from the faulty twin, on the card's
@@ -30,9 +35,10 @@ import numpy as np
 import torch
 
 from ..ops import cuda_train as ct
+from ..ops.cuda_fista import fista_project_twin
 from ..ops.spectral import product_spectral_norm_with_state
 
-__all__ = ["FAULTS", "CARD_OPS", "candidate"]
+__all__ = ["FAULTS", "FISTA_FAULTS", "CARD_OPS", "candidate"]
 
 
 class LeakyReluMask(ct._PlainOps):
@@ -108,18 +114,31 @@ class NonNegSkippedOnLayer0(ct._PlainOps):
         return side.gemm_dw_adam(i, acts, dzb, fs, count, s)
 
 
+class FistaGammaDoubled(ct._PlainOps):
+    """(g) The FISTA projection with gamma = 2 / (||A|| ||B|| + eps)^2."""
+
+    def project(self, fs, sc):
+        spec = self.spec
+        fista_project_twin(list(fs["masters"]), list(fs["w16"]),
+                           ct._fista_state_of(fs), spec.dims, spec.rho,
+                           spec.nit, spec.alpha, spec.cfg.nonneg,
+                           gamma_scale=2.0)
+
+
 FAULTS = {"a": LeakyReluMask, "b": BnMomentum09, "c": PaddedRowsInMoments,
           "d": SimpleNormExponent, "e": CeGradUnnormalized,
           "f": NonNegSkippedOnLayer0}
+FISTA_FAULTS = {"g": FistaGammaDoubled}
 # the operation of `_step` that holds each fault (a _CudaOps operation in
 # either launch form of `launch_plan`)
 CARD_OPS = {"a": "dx_bn_bwd", "b": "hidden_fwd", "c": "hidden_fwd",
-            "d": "project", "e": "ce_bwd", "f": "gemm_dw_adam"}
+            "d": "project", "e": "ce_bwd", "f": "gemm_dw_adam",
+            "g": "project"}
 
 
 def _card_class(name):
     op = CARD_OPS[name]
-    plain = FAULTS[name]
+    plain = {**FAULTS, **FISTA_FAULTS}[name]
 
     def init(self, spec):
         ct._CudaOps.__init__(self, spec)
@@ -139,4 +158,4 @@ def candidate(name: str, device):
     card."""
     if torch.device(device).type == "cuda":
         return _card_class(name)
-    return FAULTS[name]
+    return {**FAULTS, **FISTA_FAULTS}[name]

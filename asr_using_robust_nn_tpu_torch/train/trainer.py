@@ -22,7 +22,7 @@ import torch
 
 from ..models.mlp import MLPConfig, apply_mlp, init_mlp, predict_probs
 from ..utils.device import resolve_device
-from ..utils.profiling import count, span
+from ..utils.profiling import count, recording, span
 
 __all__ = ["TrainConfig", "Trainer", "Adam", "adam_optimizer", "apply_update",
            "cce_from_logits", "FusedEpochRefused"]
@@ -49,7 +49,8 @@ class TrainConfig:
     # (ops/cuda_train.py: hand-written kernels replayed as one CUDA graph per
     # epoch; on a CPU device its plain twin runs); 'auto' = 'fused' iff the
     # device is CUDA, the fit has no mesh, the optimizer state is fresh and
-    # the constraint is the full simple_norm (or None), else 'plain'.
+    # the constraint is the full simple_norm (K2), FISTA at nit 1 or 2 on
+    # widths K7 takes (ops/cuda_fista.py::fista_plan), or None, else 'plain'.
     # The fused epoch is held once per process and configuration by
     # `epoch_parity_vs_plain` (fit's result carries the verdict as
     # `epoch_gate`). A refused check raises `FusedEpochRefused` under
@@ -184,9 +185,17 @@ def _generator(device, *words) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-# once-per-process parity verdicts of the fused epoch, keyed by (model cfg,
-# batch, rho, pi_iters, device)
+# once-per-process parity verdicts of the fused epoch, keyed by `_gate_key`
 _FUSED_EPOCH_GATE: dict = {}
+
+
+def _gate_key(model_cfg, spec, device) -> tuple:
+    """The parity gate's cache key of a fused fit: (model cfg, batch, rho,
+    pi_iters, device), and under FISTA also ("fista", nit, alpha), so that
+    a FISTA fit and a simple_norm fit of the same rho never share a
+    verdict."""
+    key = (model_cfg, spec.batch, spec.rho, spec.pi_iters, str(device))
+    return key + ("fista", spec.nit, spec.alpha) if spec.fista else key
 
 
 class Trainer:
@@ -248,30 +257,48 @@ class Trainer:
         self.train_step = train_step
         self.eval_step = eval_step
 
+    def _fused_projection(self) -> bool:
+        """Whether the fused epoch implements the fit's constraint: none,
+        the full all-layers simple_norm (K2), or FISTA at nit 1 or 2 on
+        widths K7 takes (K7)."""
+        if self.constraint is None:
+            return True
+        kind = getattr(self.constraint, "_asrtpu_kind", None)
+        meta = getattr(self.constraint, "_asrtpu_meta", None) or {}
+        if kind == "simple_norm":
+            return bool(meta.get("affected_all"))
+        if kind == "fista" and meta.get("nit") in (1, 2):
+            from ..ops.cuda_fista import fista_plan
+
+            c = self.model_cfg
+            try:
+                fista_plan((c.in_dim,) + tuple(c.hidden) + (c.n_classes,))
+            except ValueError:
+                return False
+            return True
+        return False
+
     def _resolve_epoch_backend(self, fresh_opt: bool) -> bool:
         """Whether a device-resident fit runs the fused epoch
         (TrainConfig.epoch_backend). It implements a fresh optimizer state
-        (pack_state zeroes the moments) and either no constraint or the full
-        all-layers simple_norm."""
+        (pack_state zeroes the moments) and a projection of
+        `_fused_projection`."""
         cfg = self.cfg
         if cfg.epoch_backend == "plain":
             return False
         if cfg.epoch_backend not in ("auto", "fused"):
             raise ValueError(f"unknown epoch_backend {cfg.epoch_backend!r} "
                              f"(valid: auto, plain, fused)")
-        kind = getattr(self.constraint, "_asrtpu_kind", None)
-        meta = getattr(self.constraint, "_asrtpu_meta", None) or {}
-        supported = self.mesh is None and fresh_opt and (
-            self.constraint is None
-            or (kind == "simple_norm" and meta.get("affected_all")))
+        supported = (self.mesh is None and fresh_opt
+                     and self._fused_projection())
         if cfg.epoch_backend == "fused":
             if not supported:
                 raise ValueError(
                     "epoch_backend='fused' needs a single-device fit (no "
-                    "mesh) with a fresh optimizer state and either no "
-                    "constraint or the full (all-layers) simple_norm "
-                    "constraint: the configurations the fused epoch "
-                    "implements")
+                    "mesh) with a fresh optimizer state and no constraint, "
+                    "the full (all-layers) simple_norm constraint, or FISTA "
+                    "at nit 1 or 2 on widths K7 takes: the configurations "
+                    "the fused epoch implements")
             return True
         return supported and self.device.type == "cuda"
 
@@ -373,7 +400,9 @@ class Trainer:
         `trainer.dispatch`, `trainer.read`, `trainer.validate` and, on an
         improvement, `trainer.snapshot`; it counts `trainer.epochs` and
         `trainer.host_reads` (each blocking device-to-host read: a scalar,
-        or a snapshot's leaf) (`utils/profiling.py`)."""
+        or a snapshot's leaf), and after a fused FISTA fit K7's counters
+        `fista.projections` and `fista.iterations`, read once at the fit's
+        end (`utils/profiling.py`)."""
         with span("trainer.fit", new_fit=True):
             return self._fit(train_x, train_y, val_x, val_y, params, state,
                              opt_state, initial_best_val, checkpoint_dir,
@@ -427,6 +456,7 @@ class Trainer:
         dr = None
         backend = "streaming"
         gate = None
+        self._fused_cell = None  # the fused epoch's state, where it runs
         if cfg.device_resident:
             with span("trainer.setup"):
                 dr = self._device_resident_setup(train_x, train_y, val_x,
@@ -530,6 +560,7 @@ class Trainer:
         elapsed = time.perf_counter() - t0
         if writer is not None:
             writer.close()
+        self._count_projections()
         if best is None:
             best = snapshot(self._full_trees(params, state))
         return {
@@ -550,6 +581,17 @@ class Trainer:
             "checkpoint_writes": 0 if ckpt is None else ckpt.writes,
             "checkpoint_seconds": 0.0 if ckpt is None else ckpt.write_seconds,
         }
+
+    def _count_projections(self):
+        """K7's counters of the fit that just ran on the fused epoch,
+        added to the span table while a profiler records: one read."""
+        cell = getattr(self, "_fused_cell", None)
+        if cell is None or "fista_n" not in cell["fs"] or not recording():
+            return
+        n = cell["fs"]["fista_n"].tolist()
+        count("trainer.host_reads")
+        count("fista.projections", int(n[0]))
+        count("fista.iterations", int(n[1]))
 
     def _device_resident_setup(self, train_x, train_y, val_x, val_y, params,
                                state, fresh_opt):
@@ -594,19 +636,25 @@ class Trainer:
 
             meta = getattr(self.constraint, "_asrtpu_meta", None) or {}
             con = self.constraint is not None
+            fista = getattr(self.constraint, "_asrtpu_kind", None) == "fista"
             spec = FusedStepSpec(
                 cfg=self.model_cfg, batch=bs, lr=cfg.learning_rate,
                 rho=meta["rho"] if con else None,
-                pi_iters=meta.get("n_iter", 4) if con else 4)
-            gate_key = (self.model_cfg, bs, spec.rho, spec.pi_iters, str(dev))
+                pi_iters=meta.get("n_iter", 4) if con else 4,
+                projection="fista" if fista else "simple_norm",
+                nit=meta.get("nit", 2), alpha=meta.get("alpha", 2.1))
+            gate_key = _gate_key(self.model_cfg, spec, dev)
             if gate_key not in _FUSED_EPOCH_GATE:
                 _FUSED_EPOCH_GATE[gate_key] = epoch_parity_vs_plain(
-                    self.model_cfg, bs, d_train, l_train, n_true)
+                    self.model_cfg, bs, d_train, l_train, n_true,
+                    projection=(("fista", spec.rho, spec.nit, spec.alpha)
+                                if spec.fista else None))
             gate = _FUSED_EPOCH_GATE[gate_key]
             if not gate["ok"]:
                 raise FusedEpochRefused(gate)
             data_fused = pad_features(spec, d_train)
             fstate_cell = {"fs": pack_state(spec, params, state)}
+            self._fused_cell = fstate_cell
             dims_last = self.model_cfg.n_classes
 
             def make_epoch_fn(e_per_call, _spec=spec):

@@ -12,6 +12,8 @@ Counterpart of the JAX package's `utils/profiling.py`:
                  device's kernels, and a row in the span table; else a
                  shared no-op context after one check
   count(name, n) a program counter in the same table, while recording
+  recording()    whether a torch profiler records (a counter that costs a
+                 host read is read only then)
   recorded()     the table: {"spans": [Span], "counters": {fit: {name: n}}}
                  (fit None: counts outside any fit)
   MetricWriter   scalar logger: JSONL events {"tag", "value", "step",
@@ -34,8 +36,8 @@ from typing import NamedTuple
 import torch
 from torch._C._autograd import _profiler_enabled
 
-__all__ = ["trace", "span", "count", "recorded", "clear", "Span",
-           "MetricWriter"]
+__all__ = ["trace", "span", "count", "recording", "recorded", "clear",
+           "Span", "MetricWriter"]
 
 
 class Span(NamedTuple):
@@ -107,6 +109,11 @@ def span(name: str, new_fit: bool = False):
     if not _profiler_enabled():
         return _OFF
     return _On(name, new_fit)
+
+
+def recording() -> bool:
+    """Whether some torch profiler records (spans and counters are kept)."""
+    return _profiler_enabled()
 
 
 def count(name: str, n: int = 1) -> None:

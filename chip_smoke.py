@@ -2274,6 +2274,132 @@ def sound_bound_f64(tree, cfg) -> float:
     return float(bound)
 
 
+def k7_check(dev, card, steps=4, seed=SEED + 95):
+    """K7 (ops/cuda_fista.py) at the published digit widths, rho 5, nit 2,
+    on seeded NonNeg kernels in K3's padded layout: launch by launch from
+    one state against its twin (bar 1e-6 relative: fp32 sums in another
+    order), with the same counters of projections and iterations and bf16
+    copies that are the cast of the masters; the first launch against the
+    float64 FISTA (make_fista_constraint on float64 copies; bar 2
+    SIGMA_AGREE: gamma's error where ||B_i||_2 is). Then K7's time a launch
+    beside the plain projection's (make_fista_constraint(5, nit=2) on the
+    card, the same kernels unpadded) in two states: far above rho, on the
+    seeded kernels (K7 from a copy of the first launch's state, CUDA
+    events); and near it, after 20 more launches (K7 over 20 launches from
+    that state). On the CPU only the twin runs: the checks against K7 are
+    the card's."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.constraints import make_fista_constraint
+    from asr_using_robust_nn_tpu_torch.ops import cuda_fista as cf
+
+    dims = DIGIT_DIMS
+    ws, _ = seeded_stack(dev, dims, seed, scale=0.05)
+    pd = [-(-d // 128) * 128 for d in dims]
+    masters = []
+    for i, w in enumerate(ws):
+        m = torch.zeros((pd[i], pd[i + 1]), device=dev)
+        m[:dims[i], :dims[i + 1]] = w
+        masters.append(m)
+    w16 = [m.to(torch.bfloat16) for m in masters]
+    state = cf.fista_state(dims, dev)
+    want64, _ = make_fista_constraint(5.0, nit=2).apply(
+        {"layers": [{"w": w.double().cpu(), "b": torch.zeros(
+            w.shape[1], dtype=torch.float64)} for w in ws]}, ())
+    on_card = dev.type == "cuda"
+    if on_card:
+        scratch = cf.fista_scratch(dims, dev)
+        cf.fista_preload(dims)
+    rel = lambda a, b: float(torch.linalg.vector_norm(  # noqa: E731
+        a.double().cpu() - b.double().cpu()) / torch.linalg.vector_norm(
+        b.double().cpu()))
+    plain = make_fista_constraint(5.0, nit=2)
+
+    def plain_ms(kernels):
+        """The plain projection of `kernels` (unpadded), the least of two."""
+        tree = {"layers": [{"w": w.clone(), "b": torch.zeros(
+            w.shape[1], device=dev)} for w in kernels]}
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            plain.apply(tree, ())
+            if on_card:
+                torch.cuda.synchronize()
+            best = min(best, 1e3 * (time.perf_counter() - t0))
+        return best
+
+    def k7_ms(launches):
+        """K7's time a launch over `launches` launches from the state it is
+        in (nan on the CPU)."""
+        if not on_card:
+            return float("nan")
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(launches):
+            cf.fista_launch(masters, w16, state, scratch, dims, 5.0, 2, 2.1,
+                            True)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / launches
+
+    times = {"plain_far_ms": plain_ms(ws), "k7_far_ms": float("nan")}
+    if on_card:
+        keep = ([m.clone() for m in masters], [w.clone() for w in w16],
+                {key: v.clone() for key, v in state.items()})
+        for _ in range(2):  # the second from the same state is timed
+            masters = [m.clone() for m in keep[0]]
+            w16 = [w.clone() for w in keep[1]]
+            state = {key: v.clone() for key, v in keep[2].items()}
+            times["k7_far_ms"] = k7_ms(1)
+        masters, w16, state = keep
+    worst_twin, worst64 = 0.0, 0.0
+    for k in range(steps):
+        t_m = [m.clone() for m in masters]
+        t16 = [w.clone() for w in w16]
+        t_st = {key: v.clone() for key, v in state.items()}
+        cf.fista_project_twin(t_m, t16, t_st, dims, 5.0, 2, 2.1, True)
+        if not on_card:
+            masters, w16, state = t_m, t16, t_st
+        else:
+            cf.fista_launch(masters, w16, state, scratch, dims, 5.0, 2, 2.1,
+                            True)
+            torch.cuda.synchronize()
+            worst_twin = max([worst_twin] + [rel(a, b) for a, b in
+                                             zip(masters, t_m)])
+            check(all(torch.equal(h, m.to(torch.bfloat16))
+                      for h, m in zip(w16, masters)),
+                  "K7: a bf16 copy is not the cast of its master")
+            check(state["n"][:2].tolist() == t_st["n"][:2].tolist(),
+                  f"K7: counters {state['n'].tolist()} against the twin's "
+                  f"{t_st['n'].tolist()}")
+        if k == 0:
+            worst64 = max(rel(m[:dims[i], :dims[i + 1]], want64["layers"][i]
+                              ["w"]) for i, m in enumerate(masters))
+    check(worst_twin < 1e-6, f"K7 against its twin: {worst_twin:.3e} "
+          f"relative (bar 1e-6)")
+    check(worst64 < 2 * cf.SIGMA_AGREE, f"K7 against the float64 FISTA: "
+          f"{worst64:.3e} relative (bar {2 * cf.SIGMA_AGREE:g})")
+    its = "-"
+    if on_card:
+        for _ in range(20):
+            cf.fista_launch(masters, w16, state, scratch, dims, 5.0, 2, 2.1,
+                            True)
+        n0 = state["n"].clone()
+        times["k7_near_ms"] = k7_ms(20)
+        its = (state["n"] - n0)[:2].tolist()
+    else:
+        times["k7_near_ms"] = float("nan")
+    times["plain_near_ms"] = plain_ms(
+        [m[:dims[i], :dims[i + 1]] for i, m in enumerate(masters)])
+    print(f"K7 (fista_project): {steps} launches against the twin, worst "
+          f"{worst_twin:.3e} relative; the first against the float64 FISTA "
+          f"{worst64:.3e}; a launch far above rho {times['k7_far_ms']:.4f} "
+          f"ms against the plain projection's {times['plain_far_ms']:.2f} ms "
+          f"on the same kernels; near rho {times['k7_near_ms']:.4f} ms "
+          f"(iterations / layer projections over 20 launches: {its}) "
+          f"against {times['plain_near_ms']:.2f} ms ({card})", flush=True)
+    return dict(times, vs_twin=worst_twin, vs_float64=worst64)
+
+
 def cli_phase(dev, prep, root, epochs=8, card=None):
     """The trained-model path through the CLI on the digit artifacts that
     the prepare phase wrote: train a constrained model on K3 into a
@@ -2486,6 +2612,8 @@ def cli_phase(dev, prep, root, epochs=8, card=None):
         check("epoch backend: streaming" in text, f"train_{name}: backend")
         proj[name] = {"ms": ms, "max_abs_err": abs_err,
                       "epoch_s": walls[f"train_{name}"]}
+        if name == "fista":  # K7, the projection of the fused epoch
+            proj["k7"] = k7_check(dev, card)
         print(f"cli {name}: one full-width projection {ms:.2f} ms on "
               f"{dev.type}, card vs CPU max_abs {abs_err:.3e} (bar 2e-4 + "
               f"2e-4 rel); one streaming epoch through the CLI "
@@ -4960,7 +5088,7 @@ def build_all():
 
     names = ("fft_power_mel", "mixed_fft_power_mel", "dft_power_mel",
              "product_power_iter", "fused_epoch", "int8_dft_power_mel",
-             "dft_power_mel_x3", "fused_step")
+             "dft_power_mel_x3", "fused_step", "fista_project")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(load_library, names))
