@@ -12,7 +12,8 @@
 // What bounds it on an H100: at batch 512 a step is ~4 GFLOP of bf16 GEMMs
 // (4 us at the card's rate) over a state that stays in the 50 MB L2, so
 // neither bytes nor operations bound it: the chain of dependent launches
-// does. Every product is small (the widths fall 1024 -> 128), so a launch
+// does; within it, the weight update is bound by the bytes of the fp32
+// state (fe_dw_adam_group below). Every product is small (the widths fall 1024 -> 128), so a launch
 // is worth its latency only if it fills the card and does everything that
 // depends on its tile while the tile is in registers.
 //
@@ -51,10 +52,27 @@
 //    whose bf16 x^ rounds above it) pass gradient; a threshold rounded
 //    alone, without xhat_store, drops the gradient of the live units whose
 //    x^ rounds onto it.
-//  * fe_dw_adam: dW fused with Adam + NonNeg + the bf16 copy, split over the
-//    batch across a cluster so that narrow layers still fill SMs, the
-//    block's rows of the master and moments fetched by cp.async while the
-//    tile is multiplied (gemm_sm90.cuh::dw_adam_body).
+//  * fe_dw_adam_group: every layer's dW fused with Adam + NonNeg + the bf16
+//    copy, in one launch a step issued after the whole dX chain (dX of a
+//    layer reads the kernel above before its update either way). The dW
+//    products are short (depth = the batch), so what bounds this part is
+//    the fp32 state: master and both moments read and written and the bf16
+//    copy written, 26 bytes a padded weight (73 MB a step at the speaker
+//    widths, 43 MB at the digit ones; 22 / 13 us at 3.35 TB/s, less from
+//    L2). Four persistent blocks an SM walk a static list of all layers'
+//    64 x 64 tiles, largest layer first; each tile's state is fetched into
+//    L2 while the tile before it is multiplied and updated, its loads are
+//    issued in batches ahead of the stores, and the operand slices of
+//    consecutive tiles share one ring. The per-layer form it replaced on
+//    K3's path (fe_dw_adam, one cluster launch a layer, split over the
+//    batch so that narrow layers filled SMs; gemm_sm90.cuh::dw_adam_body,
+//    still K6's) ran each tile in a non-persistent block, with a launch's
+//    latency and tail a layer: 4.5-4.7x the byte bound on an H100 (the
+//    grouped form, timed alone: 1.8x / 2.7x). Staging the state in shared memory by 256-byte bulk
+//    copies on one block an SM was slower than the per-layer form. The
+//    grouped form adds each layer's depth slices in that cluster's rank
+//    order and updates through the same function, so the two give the
+//    same bits.
 //  * A batch of more than 8 row tiles (or a tile count that is no power of
 //    two) cannot put a column's rows into one cluster: it takes fe_gemm
 //    (the same main loop, plain epilogues: bias + ReLU into an fp32 z, dX
@@ -653,6 +671,167 @@ __global__ void __launch_bounds__(kThreads) fe_dw_adam(DwArgs a) {
   dw_adam_body(a, smem_raw);
 }
 
+// ---- dW + Adam of every layer in one persistent launch ------------------------
+//
+// The tiles of every layer's dW form one list, layer by layer in the host's
+// order (largest first); block b of G takes tiles b, b + G, b + 2G, ...,
+// four blocks an SM (a 3-stage ring each). The operand slices of all of a block's tiles pass
+// through one ring in turn, so the next tile's first slices load while this
+// tile's Adam runs, and each tile's master and moments (48 KB) are fetched
+// into L2 while the tile before it is multiplied and updated; the update
+// reads them into registers in the accumulator's layout and stores straight
+// out. A tile whose layer the per-layer plan splits over `split` depth ranks
+// sums each rank's slices in its own accumulator and adds the rank sums in
+// rank order: the operations and order of fe_dw_adam's cluster, without the
+// cluster, and the same update (dw_adam_update), so the two give the same
+// bits.
+
+constexpr int kGroupMaxLayers = 16;
+constexpr int kGroupStages = 3;
+constexpr int kGroupSmemBytes = kAlign + kGroupStages * 2 * kTileBytes;
+constexpr int kGroupBlocksPerSm = 4;
+constexpr int kGroupLoadBatch = 4;  // positions whose state loads are in flight
+
+struct DwLayer {  // one listed layer: dW (M, N) = x^T . dz, x (K, M), dz (K, N)
+  const bf16* x;
+  const bf16* dz;
+  float* master;
+  float* mw;
+  float* vw;
+  bf16* w16;
+  int M, N, split, tile0, layer;
+};
+
+struct DwGroupArgs {
+  DwLayer L[kGroupMaxLayers];
+  int n_layers, n_tiles, K;
+  const int* count;
+  int step;
+  const float* scales;  // null: as fe_dw_adam, whose factor is 1
+  AdamArgs adam;
+  int nonneg;
+};
+
+struct GroupTile {
+  int j, m0, n0;  // listed layer, tile origin
+};
+
+__device__ __forceinline__ GroupTile group_tile(const DwGroupArgs& a, int t) {
+  int j = 0;
+  while (j + 1 < a.n_layers && t >= a.L[j + 1].tile0) ++j;
+  const int local = t - a.L[j].tile0, tn = a.L[j].N / kTile;
+  return {j, (local / tn) * kTile, (local % tn) * kTile};
+}
+
+// Tile t's master and moments into L2: 3 x 64 rows of 256 bytes, 384 lines
+// of 128 bytes, three a thread.
+__device__ __forceinline__ void prefetch_state(const DwGroupArgs& a, int t) {
+  const GroupTile at = group_tile(a, t);
+  const DwLayer& L = a.L[at.j];
+#pragma unroll
+  for (int arr = 0; arr < 3; ++arr) {
+    const float* base = arr == 0 ? L.master : arr == 1 ? L.mw : L.vw;
+    const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const float* p =
+        base + static_cast<int64_t>(at.m0 + row) * L.N + at.n0 + half * 32;
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+  }
+}
+
+// Grid (G, 1, 1), G at most the tile count; no cluster.
+__global__ void __launch_bounds__(kThreads, kGroupBlocksPerSm)
+fe_dw_adam_group(const __grid_constant__ DwGroupArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(aligned_smem(smem_raw));
+  const int b = blockIdx.x, G = gridDim.x;
+  const int mine = (a.n_tiles - b + G - 1) / G;  // this block's tiles
+  const int kt = a.K / kTile;                   // 64-deep slices a tile
+  prefetch_state(a, b);
+  float bc1, bc2;
+  bias_corrections(a.count, a.step, a.adam, bc1, bc2);
+  const int r0 = frag_row(), c0 = frag_col();
+  float acc[32], tot[32];
+
+  auto fill = [&](int k) {
+    const int s = k % kt;
+    const GroupTile at = group_tile(a, b + (k / kt) * G);
+    const DwLayer& L = a.L[at.j];
+    const uint32_t st = ring + (k % kGroupStages) * 2 * kTileBytes;
+    load_tile<true>(st, L.x, L.M, at.m0, s * kTile);
+    load_tile<true>(st + kTileBytes, L.dz, L.N, at.n0, s * kTile);
+  };
+
+  // The tile's 16 positions of two columns, kGroupLoadBatch at a time: all
+  // loads of a batch are issued before its first store (a store may alias a
+  // later load as far as the compiler knows, so it would not move them).
+  auto update = [&](const GroupTile& at) {
+    const DwLayer& L = a.L[at.j];
+    const float s_prev = a.scales != nullptr ? a.scales[L.layer] : 1.f;
+#pragma unroll
+    for (int u0 = 0; u0 < 16; u0 += kGroupLoadBatch) {
+      float2 pv[kGroupLoadBatch], mv[kGroupLoadBatch], vv[kGroupLoadBatch];
+      int64_t gi[kGroupLoadBatch];
+#pragma unroll
+      for (int u = 0; u < kGroupLoadBatch; ++u) {
+        const int nb = (u0 + u) >> 1, h = (u0 + u) & 1;
+        gi[u] = static_cast<int64_t>(at.m0 + r0 + 8 * h) * L.N + at.n0 +
+                nb * 8 + c0;
+        pv[u] = *reinterpret_cast<const float2*>(L.master + gi[u]);
+        mv[u] = *reinterpret_cast<const float2*>(L.mw + gi[u]);
+        vv[u] = *reinterpret_cast<const float2*>(L.vw + gi[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kGroupLoadBatch; ++u) {
+        const int j = ((u0 + u) >> 1) * 4 + ((u0 + u) & 1) * 2;
+        float p[2] = {pv[u].x, pv[u].y}, mm[2] = {mv[u].x, mv[u].y},
+              v[2] = {vv[u].x, vv[u].y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dw_adam_update(p[e], mm[e], v[e], tot[j + e], s_prev, bc1, bc2,
+                         a.adam, a.nonneg);
+        }
+        *reinterpret_cast<float2*>(L.master + gi[u]) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(L.mw + gi[u]) = make_float2(mm[0], mm[1]);
+        *reinterpret_cast<float2*>(L.vw + gi[u]) = make_float2(v[0], v[1]);
+        store_bf162(L.w16 + gi[u], p[0], p[1]);
+      }
+    }
+  };
+
+  auto consume = [&](int k) {
+    const int q = k / kt, s = k % kt;
+    const GroupTile at = group_tile(a, b + q * G);
+    const int per = kt / a.L[at.j].split;  // slices of one depth rank
+    if (s == 0) {
+      if (q + 1 < mine) prefetch_state(a, b + (q + 1) * G);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[i] = 0.f;
+    }
+    if (s % per == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+    const uint32_t st = ring + (k % kGroupStages) * 2 * kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_m64n64k16<1, 1>(acc, make_desc(st + kk * 2048),
+                            make_desc(st + kTileBytes + kk * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+    if (s % per == per - 1) {  // a rank's sum, added in rank order
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[i] += acc[i];
+    }
+    if (s == kt - 1) update(at);
+  };
+
+  ring_loop<kGroupStages>(mine * kt, fill, consume);
+}
+
 // ---- elementwise and column kernels ---------------------------------------------
 
 __global__ void fe_cast_bf16(const float* __restrict__ src,
@@ -1009,6 +1188,56 @@ extern "C" int asr_fe_gemm_dw_adam(const void* x, const void* dz, void* mast,
   return static_cast<int>(launch_cluster(fe_dw_adam, d, stream, a));
 }
 
+// dW + Adam of every layer in one launch (fe_dw_adam_group): `ptrs` holds six
+// pointers a listed layer (x, dz, master, mw, vw, w16, as asr_fe_gemm_dw_adam
+// takes them) and `shape` four ints (its layer index, M, N, split), in list
+// order; the tiles are listed layer by layer in that order, row-major within
+// a layer. Every layer's depth is K; `split` (1, 2, 4 or 8, dividing K / 64)
+// is the depth ranks whose sums are added in rank order, as fe_dw_adam's
+// cluster adds them. dims: grid (G, 1, 1), G at most the tiles, no cluster.
+extern "C" int asr_fe_dw_adam_group(void* const* ptrs, const int* shape,
+                                    int n_layers, int K, const void* count,
+                                    int step, const AdamArgs* adam,
+                                    int nonneg, const int* dims,
+                                    void* stream) {
+  LaunchDims d;
+  if (n_layers < 1 || n_layers > kGroupMaxLayers || !read_dims(dims, &d) ||
+      d.grid.y != 1 || d.grid.z != 1 || d.cluster.x != 1 ||
+      d.cluster.y != 1 || d.cluster.z != 1 || d.smem < kGroupSmemBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DwGroupArgs a{};
+  int tiles = 0;
+  for (int j = 0; j < n_layers; ++j) {
+    const int* sh = shape + 4 * j;
+    const int M = sh[1], N = sh[2], split = sh[3];
+    if (bad_tiles(M, N, K) || bad_cluster(split) || (K / kTile) % split) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    void* const* p = ptrs + 6 * j;
+    a.L[j] = DwLayer{static_cast<const bf16*>(p[0]),
+                     static_cast<const bf16*>(p[1]),
+                     static_cast<float*>(p[2]),
+                     static_cast<float*>(p[3]),
+                     static_cast<float*>(p[4]),
+                     static_cast<bf16*>(p[5]),
+                     M, N, split, tiles, sh[0]};
+    tiles += (M / kTile) * (N / kTile);
+  }
+  if (d.grid.x > static_cast<unsigned>(tiles)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.n_layers = n_layers;
+  a.n_tiles = tiles;
+  a.K = K;
+  a.count = static_cast<const int*>(count);
+  a.step = step;
+  a.scales = nullptr;
+  a.adam = *adam;
+  a.nonneg = nonneg;
+  return static_cast<int>(launch_cluster(fe_dw_adam_group, d, stream, a));
+}
+
 // BN forward of one hidden layer over a (rows, d) fp32 ReLU output `a`
 // (fe_bn_fwd); rmean, rvar, muvec, sdvec, gamma, beta are this layer's rows.
 // keep >= 1: no dropout.
@@ -1069,26 +1298,29 @@ extern "C" int asr_fe_count_add(void* count, int n, void* stream) {
 }
 
 // The constants the host's launch plan mirrors, so that a check on the device
-// can hold the mirror to the build: out[0..8) = tile, ring stages, rows a
+// can hold the mirror to the build: out[0..10) = tile, ring stages, rows a
 // CCE block, widest class dimension, columns a column-kernel block, dynamic
-// bytes of a GEMM block, of a dW block, threads of a cluster-kernel block;
-// out[8..14) = static shared-memory bytes of fe_fwd_bn, fe_dx_bn, fe_dw_adam,
-// fe_ce, fe_bn_fwd, fe_bn_bwd as compiled.
+// bytes of a GEMM block, of a dW block, threads of a cluster-kernel block,
+// dynamic bytes of a grouped dW block, layers a grouped launch lists at most;
+// out[10..17) = static shared-memory bytes of fe_fwd_bn, fe_dx_bn,
+// fe_dw_adam, fe_ce, fe_bn_fwd, fe_bn_bwd, fe_dw_adam_group as compiled.
 extern "C" int asr_fe_geometry(int* out) {
-  const int head[] = {kTile, kStages, CE_ROWS, CE_MAXP, CW, kGemmSmem,
-                      kDwSmemBytes, kThreads};
-  for (int k = 0; k < 8; ++k) out[k] = head[k];
+  const int head[] = {kTile,     kStages,      CE_ROWS,  CE_MAXP,
+                      CW,        kGemmSmem,    kDwSmemBytes, kThreads,
+                      kGroupSmemBytes, kGroupMaxLayers};
+  for (int k = 0; k < 10; ++k) out[k] = head[k];
   const void* fns[] = {reinterpret_cast<const void*>(fe_fwd_bn),
                        reinterpret_cast<const void*>(fe_dx_bn),
                        reinterpret_cast<const void*>(fe_dw_adam),
                        reinterpret_cast<const void*>(fe_ce),
                        reinterpret_cast<const void*>(fe_bn_fwd),
-                       reinterpret_cast<const void*>(fe_bn_bwd)};
-  for (int k = 0; k < 6; ++k) {
+                       reinterpret_cast<const void*>(fe_bn_bwd),
+                       reinterpret_cast<const void*>(fe_dw_adam_group)};
+  for (int k = 0; k < 7; ++k) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
     if (err != cudaSuccess) return static_cast<int>(err);
-    out[8 + k] = static_cast<int>(a.sharedSizeBytes);
+    out[10 + k] = static_cast<int>(a.sharedSizeBytes);
   }
   return 0;
 }
@@ -1114,6 +1346,8 @@ extern "C" int asr_fe_preload(int* max_clusters) {
   err = prepare_kernel(fe_dx_bn, kGemmSmem, dim3(1, 8, 1), &n);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = prepare_kernel(fe_dw_adam, kDwSmemBytes, dim3(1, 1, 8), &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = prepare_kernel(fe_dw_adam_group, kGroupSmemBytes, one, &ignore);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes a;
   const void* fns[] = {reinterpret_cast<const void*>(fe_cast_bf16),

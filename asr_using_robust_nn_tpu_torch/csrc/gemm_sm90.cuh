@@ -417,6 +417,29 @@ constexpr int kDwSmemBytes = kAlign + kRingBytes + 3 * kTile * kTile * 4;
 static_assert(kTile * kPartStride * 4 <= kRingBytes,
               "the partial dW tile reuses the ring");
 
+// One weight's update from its gradient g: the master as loaded times the
+// deferred factor s_prev, Adam, NonNeg. Every dW + Adam kernel (this body,
+// fused_epoch.cu's grouped one) updates through it. Each operation's
+// rounding is spelled out, as the compiler contracted adam_step's
+// expressions in fe_dw_adam, so that the same inputs give the same bits in
+// whatever code it is inlined into (left to the compiler, the grouped
+// kernel's m' came out as fma(b1, m, omb1 * g), one ulp off a third of the
+// time).
+__device__ __forceinline__ void dw_adam_update(float& p, float& m, float& v,
+                                               float g, float s_prev,
+                                               float bc1, float bc2,
+                                               const AdamArgs& a,
+                                               int nonneg) {
+  const float mn = __fmaf_rn(g, a.omb1, __fmul_rn(a.b1, m));
+  const float vn = __fmaf_rn(__fmul_rn(a.omb2, g), g, __fmul_rn(a.b2, v));
+  const float upd = __fdiv_rn(
+      __fdiv_rn(mn, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), a.eps));
+  p = __fmaf_rn(-upd, a.lr, __fmul_rn(p, s_prev));
+  if (nonneg) p = fmaxf(p, 0.f);
+  m = mn;
+  v = vn;
+}
+
 __device__ __forceinline__ void dw_adam_body(const DwArgs& a,
                                              unsigned char* smem_raw) {
   unsigned char* smem = aligned_smem(smem_raw);
@@ -482,14 +505,13 @@ __device__ __forceinline__ void dw_adam_body(const DwArgs& a,
       sv[t] = *reinterpret_cast<const float4*>(st + (t * own + lr) * kTile +
                                                c4 * 4);
     }
-    float p[4] = {sv[0].x * s_prev, sv[0].y * s_prev, sv[0].z * s_prev,
-                  sv[0].w * s_prev};
+    float p[4] = {sv[0].x, sv[0].y, sv[0].z, sv[0].w};
     float mm[4] = {sv[1].x, sv[1].y, sv[1].z, sv[1].w};
     float vv[4] = {sv[2].x, sv[2].y, sv[2].z, sv[2].w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      adam_step(p[q], mm[q], vv[q], g[q], bc1, bc2, a.adam);
-      if (a.nonneg) p[q] = fmaxf(p[q], 0.f);
+      dw_adam_update(p[q], mm[q], vv[q], g[q], s_prev, bc1, bc2, a.adam,
+                     a.nonneg);
     }
     *reinterpret_cast<float4*>(a.master + gi) =
         make_float4(p[0], p[1], p[2], p[3]);

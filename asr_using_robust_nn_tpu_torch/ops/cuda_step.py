@@ -41,9 +41,10 @@ import torch
 
 from ._build import load_library
 from .cuda_spectral import pi_launch, preload
-from .cuda_train import (_BF16, _EPS, FusedStepSpec, _AdamArgs, _CudaOps,
-                         _PlainOps, _scratch, _state_leaves,
-                         _state_map, _step, _template_state, preload_kernels)
+from .cuda_train import (_BF16, _EPS, FusedStepSpec, _AdamArgs,
+                         _ComposedOps, _CudaOps, _PlainOps, _scratch,
+                         _state_leaves, _state_map, _step, _template_state,
+                         preload_kernels)
 
 __all__ = ["build_fused_step", "fused_step_plain", "fused_steps_plain",
            "KERNEL_SOURCE", "REPLACES"]
@@ -100,7 +101,10 @@ def _lib():
 
 
 class _CudaStepOps(_CudaOps):
-    """K3's launches with K6's two operations from csrc/fused_step.cu."""
+    """K3's launches with K6's two operations from csrc/fused_step.cu; the
+    weight updates stay one launch a layer (K3 groups them)."""
+
+    dw_adam_all = _ComposedOps.dw_adam_all
 
     def __init__(self, spec: FusedStepSpec):
         if spec.n_layers > _MAX_LAYERS:

@@ -26,10 +26,10 @@ state both run on. Counterpart of the JAX package's `ops/pallas_train.py`
 
   launch_plan(spec)
       the form of every kernel launch of a step, from the spec alone: tile,
-      grid, cluster, stages, shared memory, and whether BN rides in the GEMM
-      epilogues. `_CudaOps` takes each launch's form and cluster split from
-      it; the C entries form the same grids from the matrix shapes and
-      refuse any other.
+      grid, cluster, stages, shared memory, whether BN rides in the GEMM
+      epilogues, and the tile list of the grouped dW + Adam launch. `_CudaOps`
+      takes each launch's form and cluster split from it; the C entries form
+      the same grids from the matrix shapes and refuse any other.
 
 Both the twin and the kernels run one step program, `_step`, over one set
 of buffers; only the operations differ (`_PlainOps`, `_CudaOps`). A CUDA
@@ -53,6 +53,7 @@ from ..constraints import make_fista_constraint, make_simple_norm_constraint
 from ..models.mlp import MLPConfig, init_mlp
 from ..train.epoch_scan import build_epoch_fn, shuffle_batches
 from ..train.trainer import _generator, adam_optimizer
+from ..utils.profiling import count as count_event
 from ..utils.profiling import span
 from ._build import load_library
 from .cuda_fista import (fista_launch, fista_preload, fista_project_twin,
@@ -65,7 +66,7 @@ __all__ = ["FusedStepSpec", "pack_state", "unpack_params", "unpack_opt_state",
            "build_fused_epoch_fn", "epoch_parity_vs_plain", "parity_bars",
            "GATE_SPREAD_FACTOR", "GATE_LOCKSTEP_STEPS", "order_spread",
            "bn_bar",
-           "dropout_keep", "launch_plan", "Launch",
+           "dropout_keep", "launch_plan", "Launch", "GroupLaunch",
            "KERNEL_SOURCE", "REPLACES"]
 
 KERNEL_SOURCE = "asr_using_robust_nn_tpu_torch/csrc/fused_epoch.cu"
@@ -316,6 +317,12 @@ _STAGES = 4           # kStages
 _THREADS = 128        # kThreads: one warpgroup
 _RING_BYTES = 1024 + 2 * _STAGES * _TILE * 128   # alignment slack + the ring
 _STATE_BYTES = 3 * _TILE * _TILE * 4             # dW: master and moments
+# the grouped dW + Adam launch: a block holds a 3-stage ring alone (the state
+# goes through registers), four persistent blocks an SM of an H100's 132
+_GROUP_STAGES = 3       # kGroupStages
+_GROUP_SMEM = 1024 + 2 * _GROUP_STAGES * _TILE * 128
+_GROUP_MAX_LAYERS = 16  # kGroupMaxLayers
+_GROUP_BLOCKS = 4 * 132
 _MAX_CLUSTER = 8      # the portable cluster size
 _CE_ROWS = 8          # fe_ce: rows per block
 _CE_MAX_WIDTH = 512   # fe_ce: widest padded class dimension
@@ -366,6 +373,53 @@ class Launch:
         return [(r * per, (r + 1) * per) for r in range(self.cluster[2])]
 
 
+@dataclass(frozen=True)
+class GroupLaunch:
+    """The grouped dW + Adam launch of a step (`fe_dw_adam_group`): `grid`
+    persistent blocks (four an SM) walk one list of the 64 x 64 output
+    tiles of every layer's dW; block b takes tiles b, b + G, b + 2G, ...
+    (G = grid[0]). `layers` lists (layer, rows, cols, split) in list order,
+    the largest layer first; a layer's tiles are listed row-major. `split`
+    is the per-layer plan's depth split: the block sums each of `split`
+    depth slices in its own accumulator and adds them in rank order, as the
+    per-layer launch's cluster does. `dims()` is what the C entry launches
+    with (no cluster)."""
+
+    kernel: str
+    layers: tuple[tuple[int, int, int, int], ...]
+    depth: int
+    grid: tuple[int, int, int]
+    stages: int
+    smem_bytes: int
+    cluster: tuple[int, int, int] = (1, 1, 1)
+    cluster_size: int = 1
+
+    @property
+    def n_tiles(self) -> int:
+        return sum((r // _TILE) * (c // _TILE) for _, r, c, _ in self.layers)
+
+    def dims(self):
+        """The launch for the C entry: grid, cluster, dynamic bytes."""
+        return (ctypes.c_int * 7)(*self.grid, *self.cluster, self.smem_bytes)
+
+    def tiles(self) -> list[tuple[int, int, int]]:
+        """(layer, row0, col0) of every tile, in list order."""
+        return [(i, r0, c0) for i, rows, cols, _ in self.layers
+                for r0 in range(0, rows, _TILE)
+                for c0 in range(0, cols, _TILE)]
+
+    def block_tiles(self, b: int) -> list[tuple[int, int, int]]:
+        """The tiles block `b` updates, in its order."""
+        return self.tiles()[b::self.grid[0]]
+
+    def depth_slices(self, layer: int) -> list[tuple[int, int]]:
+        """The [k0, k1) depth slices whose sums layer `layer`'s tiles add
+        in order."""
+        split = next(sp for i, _, _, sp in self.layers if i == layer)
+        per = self.depth // split
+        return [(r * per, (r + 1) * per) for r in range(split)]
+
+
 def _dw_split(tiles: int, depth_tiles: int) -> int:
     """Blocks along the depth for a dW product of `tiles` output tiles: the
     smallest power of two (at most the cluster limit, dividing the depth
@@ -384,13 +438,18 @@ def launch_plan(spec: FusedStepSpec) -> dict:
       {"bn_in_epilogue": bool,
        "fwd": [Launch per layer], "ce": Launch,
        "dx": [None, Launch per layer 1..m-1], "dw": [Launch per layer],
+       "dw_group": GroupLaunch or None,
        "bn_fwd" / "bn_bwd": [Launch per hidden layer] (column form only)}
 
     BN rides in the GEMM epilogues when the batch is 1, 2, 4 or 8 row tiles:
     the blocks of a column tile then form one cluster along the batch. Any
     other batch takes plain-epilogue GEMMs and the column kernels. A dW
     launch also holds its block's rows of the master and both moments in
-    shared memory. Raises ValueError for a spec the kernels do not take."""
+    shared memory. K3 updates every layer in the one grouped launch
+    `dw_group` (None past _GROUP_MAX_LAYERS layers: then the per-layer
+    launches), with each layer's depth split as its per-layer launch has
+    it; K6 keeps the per-layer launches. Raises ValueError for a spec the
+    kernels do not take."""
     B, pd, m = spec.batch, spec.pdims, spec.n_layers
     if spec.pallas_relu_mask:
         raise ValueError("FusedStepSpec.pallas_relu_mask: K3 masks with "
@@ -439,17 +498,27 @@ def launch_plan(spec: FusedStepSpec) -> dict:
                        extra=_STATE_BYTES))
     ce = Launch("ce", B, pd[-1], 0, (_CE_ROWS, pd[-1], 0),
                 (B // _CE_ROWS, 1, 1), (1, 1, 1), None, 0, 0)
+    group = None
+    if m <= _GROUP_MAX_LAYERS:
+        order = sorted(range(m), key=lambda i: -pd[i] * pd[i + 1])
+        layers = tuple((i, pd[i], pd[i + 1], dw[i].cluster[2]) for i in order)
+        n_tiles = sum((r // _TILE) * (c // _TILE) for _, r, c, _ in layers)
+        group = GroupLaunch("dw_adam_group", layers, B,
+                            (min(n_tiles, _GROUP_BLOCKS), 1, 1),
+                            _GROUP_STAGES, _GROUP_SMEM)
     plan = {"bn_in_epilogue": fused, "fwd": fwd, "ce": ce, "dx": dx, "dw": dw,
-            "bn_fwd": [], "bn_bwd": []}
+            "dw_group": group, "bn_fwd": [], "bn_bwd": []}
     if not fused:
         plan["bn_fwd"] = [column("bn_fwd", B, pd[i + 1]) for i in range(m - 1)]
         plan["bn_bwd"] = [column("bn_bwd", B, pd[i + 1]) for i in range(m - 1)]
     return plan
 
 
-def plan_launches(plan: dict) -> list[Launch]:
+def plan_launches(plan: dict, grouped: bool = True) -> list:
     """Every launch of `plan` in step order (the projection and the
-    prologue aside)."""
+    prologue aside): the forward, the CCE, the dX chain, then the weight
+    updates, as K3's grouped launch (`grouped`, where the plan has one) or
+    as the per-layer launches K6 makes."""
     m = len(plan["fwd"])
     out = []
     for i in range(m):
@@ -457,21 +526,23 @@ def plan_launches(plan: dict) -> list[Launch]:
         if i < m - 1 and plan["bn_fwd"]:
             out.append(plan["bn_fwd"][i])
     out.append(plan["ce"])
-    for i in range(m - 1, -1, -1):
-        if i > 0:
-            out.append(plan["dx"][i])
-            if plan["bn_bwd"]:
-                out.append(plan["bn_bwd"][i - 1])
-        out.append(plan["dw"][i])
+    for i in range(m - 1, 0, -1):
+        out.append(plan["dx"][i])
+        if plan["bn_bwd"]:
+            out.append(plan["bn_bwd"][i - 1])
+    if grouped and plan["dw_group"] is not None:
+        out.append(plan["dw_group"])
+    else:
+        out.extend(plan["dw"][i] for i in range(m - 1, -1, -1))
     return out
 
 
 def _scratch(spec: FusedStepSpec, device) -> dict:
     """Every buffer a step uses besides the state; reused by every step.
     `z` and `da` (fp32) are touched only where BN runs as separate kernels
-    (and by the twin); `dzb` alternates between two buffers because a
-    layer's dZ is still read by its dW product when the dZ of the layer
-    below is written. Under FISTA, K7's scratch under `fista_<name>`."""
+    (and by the twin); `dzb[i]` is layer i's dZ (B, pdims[i + 1]) in bf16,
+    one buffer a layer, since every dW product runs after the whole dX
+    chain. Under FISTA, K7's scratch under `fista_<name>`."""
     B, pd, m, dmax = spec.batch, spec.pdims, spec.n_layers, spec.dmax
     f32 = dict(dtype=torch.float32, device=device)
     sc = {
@@ -481,8 +552,8 @@ def _scratch(spec: FusedStepSpec, device) -> dict:
                   for i in range(m - 1)],
         "z": torch.empty(B * dmax, **f32),
         "da": torch.empty(B * dmax, **f32),
-        "dzb": [torch.empty(B * dmax, dtype=_BF16, device=device)
-                for _ in range(2)],
+        "dzb": [torch.empty((B, pd[i + 1]), dtype=_BF16, device=device)
+                for i in range(m)],
         "muvec": torch.zeros((m, dmax), **f32),
         "sdvec": torch.zeros((m, dmax), **f32),
         "denom": torch.empty(1, **f32),
@@ -507,10 +578,14 @@ def _fista_state_of(fs: dict) -> dict:
 
 def _step(ops, spec, fs, sc, x, y, w, seeds, s, losses, accs):
     """One training step on the packed state (Pallas `_make_epoch_kernel`
-    body): forward, CCE, backward with Adam fused per layer (dX before the
-    layer's weight update), projection."""
+    body): forward, CCE, the dX chain with Adam on each layer's small
+    vectors, then every layer's dW with Adam on the kernels, projection.
+    dX of layer i - 1 reads layer i's bf16 kernel before the weight update
+    writes it, and nothing else the backward reads is written by a dW, so
+    updating the kernels after the chain changes no result."""
     m, pd, B = spec.n_layers, spec.pdims, spec.batch
     sm = fs["small"]
+    dzb = sc["dzb"]
     ops.prologue(x, w, sc["acts"][0], sc["denom"])
     for i in range(m - 1):
         ops.hidden_fwd(i, sc["acts"][i], fs["w16"][i], sm, w, sc,
@@ -518,16 +593,12 @@ def _step(ops, spec, fs, sc, x, y, w, seeds, s, losses, accs):
     z = _view(sc["z"], B, pd[-1])
     ops.gemm_fwd(m - 1, sc["acts"][m - 1], fs["w16"][m - 1], sm["b"][m - 1],
                  z, spec.cfg.n_classes)
-    dzb = _view(sc["dzb"][(m - 1) % 2], B, pd[-1])
-    ops.ce_bwd(m - 1, z, y, w, sm, sc, losses, accs, s, dzb, fs["count"])
-    for i in range(m - 1, -1, -1):
-        if i > 0:
-            below = _view(sc["dzb"][(i - 1) % 2], B, pd[i])
-            ops.dx_bn_bwd(i - 1, dzb, fs["w16"][i], sc["xhats"][i - 1], w, sm,
-                          sc, below, seeds, s, fs["count"])
-        ops.gemm_dw_adam(i, sc["acts"][i], dzb, fs, fs["count"], s)
-        if i > 0:
-            dzb = below
+    ops.ce_bwd(m - 1, z, y, w, sm, sc, losses, accs, s, dzb[m - 1],
+               fs["count"])
+    for i in range(m - 1, 0, -1):
+        ops.dx_bn_bwd(i - 1, dzb[i], fs["w16"][i], sc["xhats"][i - 1], w, sm,
+                      sc, dzb[i - 1], seeds, s, fs["count"])
+    ops.dw_adam_all(sc["acts"], dzb, fs, fs["count"], s)
     if spec.rho is not None:
         ops.project(fs, sc)
 
@@ -542,9 +613,17 @@ def _bf16_next_up(t):
 
 
 class _ComposedOps:
-    """The three fused operations of `_step` as compositions of the separate
-    ones, through the fp32 scratch `z` and `da`: what the twin computes, and
-    what the kernels launch where BN does not ride in a GEMM epilogue."""
+    """The fused operations of `_step` as compositions of the separate
+    ones: the forward and the dX with BN through the fp32 scratch `z` and
+    `da` (what the twin computes, and what the kernels launch where BN does
+    not ride in a GEMM epilogue), and the weight updates of every layer as
+    one `gemm_dw_adam` a layer (the twin, and K6's launches)."""
+
+    def dw_adam_all(self, acts, dzbs, fs, count, s):
+        """dW + Adam of every layer, after the dX chain: layer i's dW =
+        acts[i]^T . dzbs[i], then Adam, NonNeg and the bf16 copy."""
+        for i in range(len(dzbs) - 1, -1, -1):
+            self.gemm_dw_adam(i, acts[i], dzbs[i], fs, count, s)
 
     def hidden_fwd(self, i, a16, w16, sm, w, sc, xhat, act_next, seeds, s):
         z = _view(sc["z"], a16.shape[0], w16.shape[1])
@@ -788,6 +867,7 @@ def _lib():
         "asr_fe_dx_bn": [p] * 9 + [i, i, i, i, f, p, i, i, p, adam, dims, p],
         "asr_fe_gemm_dw_adam": [p, p, p, p, p, p, i, i, i, p, i, adam, i,
                                 dims, p],
+        "asr_fe_dw_adam_group": [p, dims, i, i, p, i, adam, i, dims, p],
         "asr_fe_bn_fwd": [p, i, i, p, p, p, p, p, p, p, p, p, p, i, f, f, f,
                           f, p, i, i, dims, p],
         "asr_fe_bn_bwd": [i, p, i, i, p, p, p, p, p, p, p, f, p, i, i, p,
@@ -829,18 +909,20 @@ def kernel_geometry(lib) -> dict:
     memory of its kernels as loaded on the current device. Raises if the
     plan's constants are not the library's, or if a block's dynamic and
     static bytes together pass `SMEM_LIMIT`."""
-    out = (ctypes.c_int * 14)()
+    out = (ctypes.c_int * 17)()
     _check("geometry", lib.asr_fe_geometry(out))
-    built = tuple(out[:8])
+    built = tuple(out[:10])
     mine = (_TILE, _STAGES, _CE_ROWS, _CE_MAX_WIDTH, _COL_WIDTH, _RING_BYTES,
-            _RING_BYTES + _STATE_BYTES, _THREADS)
+            _RING_BYTES + _STATE_BYTES, _THREADS, _GROUP_SMEM,
+            _GROUP_MAX_LAYERS)
     if built != mine:
         raise RuntimeError(f"launch_plan is written for the kernel geometry "
                            f"{mine}, the built library has {built}")
     static = dict(zip(("fwd_bn", "dx_bn", "dw_adam", "ce", "bn_fwd",
-                       "bn_bwd"), out[8:]))
+                       "bn_bwd", "dw_adam_group"), out[10:]))
     dynamic = {"fwd_bn": _RING_BYTES, "dx_bn": _RING_BYTES,
-               "dw_adam": _RING_BYTES + _STATE_BYTES}
+               "dw_adam": _RING_BYTES + _STATE_BYTES,
+               "dw_adam_group": _GROUP_SMEM}
     for k, v in static.items():
         if v + dynamic.get(k, 0) > SMEM_LIMIT:
             raise RuntimeError(f"{k}: {v} static + {dynamic.get(k, 0)} "
@@ -967,12 +1049,31 @@ class _CudaOps(_ComposedOps):
 
     def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
         K, M = acts.shape
+        count_event("k3.dw_layer")
         self._ran("gemm_dw_adam", self.lib.asr_fe_gemm_dw_adam(
             acts.data_ptr(), dzb.data_ptr(), fs["masters"][i].data_ptr(),
             fs["mw"][i].data_ptr(), fs["vw"][i].data_ptr(),
             fs["w16"][i].data_ptr(), M, dzb.shape[1], K, count.data_ptr(), s,
             ctypes.byref(self.adam), int(self.spec.cfg.nonneg),
             self.plan["dw"][i].dims(), self._stream()))
+
+    def dw_adam_all(self, acts, dzbs, fs, count, s):
+        """Every layer's dW + Adam in the one grouped launch of the plan
+        (`fe_dw_adam_group`), where it has one."""
+        g = self.plan["dw_group"]
+        if g is None:
+            return super().dw_adam_all(acts, dzbs, fs, count, s)
+        keys = ("masters", "mw", "vw", "w16")
+        ptrs = (ctypes.c_void_p * (6 * len(g.layers)))(*[
+            t.data_ptr() for i, _, _, _ in g.layers
+            for t in (acts[i], dzbs[i], *(fs[k][i] for k in keys))])
+        shape = (ctypes.c_int * (4 * len(g.layers)))(*[
+            v for layer in g.layers for v in layer])
+        count_event("k3.dw_group")
+        self._ran("dw_adam_group", self.lib.asr_fe_dw_adam_group(
+            ptrs, shape, len(g.layers), g.depth, count.data_ptr(), s,
+            ctypes.byref(self.adam), int(self.spec.cfg.nonneg), g.dims(),
+            self._stream()))
 
     def project(self, fs, sc):
         spec = self.spec

@@ -165,8 +165,9 @@ class K3TwinLockstep:
     def _both(self, op, name, args, read):
         """Run `name` on the candidate, then on the twin from the same
         buffers; read the quantities (`read(before)` -> {quantity: tensor,
-        or (tensor, the scale of its operands on the candidate's side)})
-        after each; leave the candidate's buffers."""
+        or (tensor, the scale of its operands on the candidate's side)};
+        a quantity keyed (op, quantity) is noted under that op) after each;
+        leave the candidate's buffers."""
 
         def split(v):
             return (v[0], float(v[1])) if isinstance(v, tuple) else (v, None)
@@ -181,7 +182,8 @@ class K3TwinLockstep:
             t.copy_(before[k])
         getattr(self.twin, name)(*args)
         for q, v in read(before).items():
-            self._note(op, q, got[q][0], split(v)[0], got[q][1])
+            where, what = q if isinstance(q, tuple) else (op, q)
+            self._note(where, what, got[q][0], split(v)[0], got[q][1])
         for k, t in self.world.items():
             t.copy_(after[k])
 
@@ -320,29 +322,38 @@ class K3TwinLockstep:
                     {k: terms[k] for k in keys}, dzb)
 
     @_held
-    def gemm_dw_adam(self, i, acts, dzb, fs, count, s):
-        op = f"dW + Adam {i}"
-        probe = {k: [None] * i + [torch.zeros_like(fs[k][i]) if k in (
-            "mw", "vw") else fs[k][i].clone()] for k in ("masters", "mw",
-                                                         "vw", "w16")}
-        self.k3.gemm_dw_adam(i, acts, dzb, probe, count, s)
+    def dw_adam_all(self, acts, dzbs, fs, count, s):
+        """Every layer's dW + Adam, as the candidate runs it (K3: the one
+        grouped launch); each layer's quantities are noted under its own
+        op, "dW + Adam i"."""
+        m = len(dzbs)
+        probe = {k: [torch.zeros_like(t) if k in ("mw", "vw") else t.clone()
+                     for t in fs[k]] for k in ("masters", "mw", "vw", "w16")}
+        self.k3.dw_adam_all(acts, dzbs, probe, count, s)
         self._sync()
-        term = (acts.float().abs().amax(1) * dzb.float().abs().amax(1)).max()
-        self._note(op, "dW", probe["mw"][i] / self.omb1,
-                   self.twin.dw_product(i, acts, dzb), float(term))
+        for i in range(m - 1, -1, -1):
+            term = (acts[i].float().abs().amax(1)
+                    * dzbs[i].float().abs().amax(1)).max()
+            self._note(f"dW + Adam {i}", "dW", probe["mw"][i] / self.omb1,
+                       self.twin.dw_product(i, acts[i], dzbs[i]), float(term))
         nonneg = self.spec.cfg.nonneg
 
         def read(b):
-            out = {"Adam m": fs["mw"][i], "Adam v": fs["vw"][i],
-                   "master after NonNeg": fs["masters"][i],
-                   "w16": fs["w16"][i].float()}
-            if nonneg:  # exactly 0 on both sides where the clamp holds
-                out["master < 0 (NonNeg)"] = (
-                    torch.clamp_max(fs["masters"][i], 0.0),
-                    b[f"masters[{i}]"].abs().max())
+            out = {}
+            for i in range(m - 1, -1, -1):
+                op = f"dW + Adam {i}"
+                out.update({(op, "Adam m"): fs["mw"][i],
+                            (op, "Adam v"): fs["vw"][i],
+                            (op, "master after NonNeg"): fs["masters"][i],
+                            (op, "w16"): fs["w16"][i].float()})
+                if nonneg:  # exactly 0 on both sides where the clamp holds
+                    out[(op, "master < 0 (NonNeg)")] = (
+                        torch.clamp_max(fs["masters"][i], 0.0),
+                        b[f"masters[{i}]"].abs().max())
             return out
 
-        self._both(op, "gemm_dw_adam", (i, acts, dzb, fs, count, s), read)
+        self._both("dW + Adam", "dw_adam_all", (acts, dzbs, fs, count, s),
+                   read)
 
     @_held
     def project(self, fs, sc):

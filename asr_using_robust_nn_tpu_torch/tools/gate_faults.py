@@ -130,9 +130,10 @@ FAULTS = {"a": LeakyReluMask, "b": BnMomentum09, "c": PaddedRowsInMoments,
           "f": NonNegSkippedOnLayer0}
 FISTA_FAULTS = {"g": FistaGammaDoubled}
 # the operation of `_step` that holds each fault (a _CudaOps operation in
-# either launch form of `launch_plan`)
+# either launch form of `launch_plan`; f's is the grouped weight update, so
+# that the card runs the faulty twin in the grouped launch's place)
 CARD_OPS = {"a": "dx_bn_bwd", "b": "hidden_fwd", "c": "hidden_fwd",
-            "d": "project", "e": "ce_bwd", "f": "gemm_dw_adam",
+            "d": "project", "e": "ce_bwd", "f": "dw_adam_all",
             "g": "project"}
 
 

@@ -38,6 +38,8 @@ STEPS, BATCH, TRUE_LAST = 33, 512, 182
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
+    ("fe_dw_adam_group", "dW GEMM + Adam + NonNeg + bf16 copy, every layer "
+     "in one persistent launch"),
     ("fe_dw_adam", "dW GEMM + Adam + NonNeg + bf16 copy (cluster over depth)"),
     ("fe_dx_bn", "dX GEMM + BN/ReLU/dropout backward + Adam of gamma, beta, b"),
     ("fe_fwd_bn", "forward GEMM + bias + ReLU + BN + dropout"),

@@ -1126,7 +1126,8 @@ def kernel_compare(dev, spec, what, seed=SEED + 40, zero_rows=37):
     moment_of = {f"masters[{i}]": f"mw[{i}]" for i in range(spec.n_layers)}
     moment_of.update({f"small.{k}": f"small.m_{k}"
                       for k in ("b", "gamma", "beta")})
-    adam_ops = ("ce_bwd", "dx_bn_bwd", "bn_bwd", "gemm_dw_adam")
+    adam_ops = ("ce_bwd", "dx_bn_bwd", "bn_bwd", "dw_adam_all",
+                "gemm_dw_adam")
 
     def held(name, call):
         k = at[0]
@@ -1147,7 +1148,7 @@ def kernel_compare(dev, spec, what, seed=SEED + 40, zero_rows=37):
                 rel, note = update_err(before[key], t, ref, before[mom],
                                        snaps[k][mom], lr)
                 key = f"{key}: {note}"
-            elif name == "gemm_dw_adam" and key.startswith("w16"):
+            elif name in adam_ops[3:] and key.startswith("w16"):
                 own = bufC[key.replace("w16", "masters")].to(torch.bfloat16)
                 rel = 0.0 if torch.equal(t, own) else float("inf")
                 key += ": not the cast of its master"
@@ -1177,7 +1178,7 @@ def kernel_compare(dev, spec, what, seed=SEED + 40, zero_rows=37):
     scales = 0.5 + torch.rand((1, 128), generator=gen, device=dev)
     i = m - 2  # a narrow layer: its dW launch is split over a cluster
     acts = snaps[-1][f"acts[{i}]"]
-    dzb = snaps[-1][f"dzb[{i % 2}]"][:B * pd[i + 1]].view(B, pd[i + 1])
+    dzb = snaps[-1][f"dzb[{i}]"]
     fold = []
     for ops in (k6._PlainStepOps(spec), step_ops):
         fs = ct._state_map(lambda t: t.clone(), fs0)
@@ -4623,6 +4624,56 @@ def k2_launch_timing(dev, ws, u0, eps, card, steps=33, reps=20):
     return out
 
 
+def k3_dw_timing(dev, card, reps=20):
+    """K3's weight updates of one step at the speaker (64 rows) and digit
+    (512 rows) widths: the grouped launch (`fe_dw_adam_group`) against one
+    `fe_dw_adam` launch a layer, each form `reps` steps in one captured
+    graph, per step; beside the byte bound: the fp32 master and both
+    moments read and written and the bf16 copy written, 26 bytes a padded
+    weight at 3.35 TB/s (less where the state stays in the 50 MB L2)."""
+    import torch
+    from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig, init_mlp
+    from asr_using_robust_nn_tpu_torch.ops import cuda_train as ct
+
+    out = {}
+    for name, cfg, batch in (("speaker", MLPConfig.speaker_constrained(), 64),
+                             ("digit", MLPConfig.digit_constrained(), 512)):
+        spec = ct.FusedStepSpec(cfg=cfg, batch=batch, rho=0.1)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+        params, state = init_mlp(cfg, gen, device=dev)
+        fs = ct.pack_state(spec, params, state)
+        sc = ct._scratch(spec, dev)
+        for t in sc["acts"] + sc["dzb"]:
+            t.copy_(1e-2 * torch.randn(t.shape, generator=gen, device=dev))
+        ops = ct._CudaOps(spec)
+        ct.preload_kernels(ops.lib)
+        forms = {"grouped": ops.dw_adam_all,
+                 "per_layer": lambda *a, o=ops: ct._ComposedOps.dw_adam_all(
+                     o, *a)}
+        res = {}
+        for form, fn in forms.items():
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for s in range(reps):
+                    fn(sc["acts"], sc["dzb"], fs, fs["count"], s)
+            graph.replay()
+            res[form] = time_ms(graph.replay, 5) / reps
+        n = sum(w.numel() for w in fs["masters"])
+        res["mb"] = 26 * n / 1e6
+        res["bound_ms"] = 26 * n / H100_BYTES_PER_S * 1e3
+        res["tiles"] = ct.launch_plan(spec)["dw_group"].n_tiles
+        out[name] = res
+        print(f"time K3 dW + Adam a step, {name} widths, {batch} rows "
+              f"({n} padded weights, {res['mb']:.1f} MB, {res['tiles']} "
+              f"tiles): grouped launch {res['grouped'] * 1e3:.1f} us, "
+              f"{spec.n_layers} per-layer launches "
+              f"{res['per_layer'] * 1e3:.1f} us; byte bound "
+              f"{res['bound_ms'] * 1e3:.1f} us ({res['grouped'] / res['bound_ms']:.2f}x "
+              f"/ {res['per_layer'] / res['bound_ms']:.2f}x it); card {card}",
+              flush=True)
+    return out
+
+
 def train_timing_phase(dev, k3_args, reps=5):
     """K2 against its twin, and K3 per epoch against its twin and the plain
     epoch (fp32 and bf16), plain/kernel/kernel/plain after a warm call."""
@@ -4661,6 +4712,7 @@ def train_timing_phase(dev, k3_args, reps=5):
               f"{[round(x, 3) for x in t]}); card {card}", flush=True)
     if dev.type == "cuda":  # a CPU rehearsal has no launch and no graph
         out["k2_launch"] = k2_launch_timing(dev, ws, u0, eps, card)
+        out["k3_dw"] = k3_dw_timing(dev, card)
 
     spec, run, args, data, labels, n_true, params, state = k3_args
     steps = args[1].shape[0]
@@ -4678,7 +4730,8 @@ def train_timing_phase(dev, k3_args, reps=5):
         edge = 2 * spec.n_layers + 1
         nodes = (run.graphs[dev].kernel_nodes - edge) / steps
         out["k3"]["graph_nodes_per_step"] = nodes
-        # the plan's launches, the prologue and K2
+        # the plan's launches (the weight updates grouped), the prologue
+        # and K2
         planned = len(ct.plan_launches(ct.launch_plan(spec))) + 2
         check(nodes == planned, f"K3's graph runs {nodes} kernels a step, "
               f"its launch plan says {planned}")
@@ -4735,8 +4788,10 @@ def step_timing_phase(dev, k6_args, mrun_args, k3_epoch_ms, reps=5):
         graph.load(fs)
         replay_ms = time_ms(graph.graph.replay, 10 * reps)
         nodes = graph.kernel_nodes
-        # the plan's launches, the prologue, K2, the rescale and the count
-        planned = len(ct.plan_launches(ct.launch_plan(spec))) + 4
+        # the plan's launches (one dW a layer), the prologue, K2, the
+        # rescale and the count
+        planned = len(ct.plan_launches(ct.launch_plan(spec),
+                                       grouped=False)) + 4
         check(nodes == planned, f"K6's graph runs {nodes} kernels, its "
               f"launch plan says {planned}")
     chain = lambda: step.chain(fs, xs, ys, ws, seeds)  # noqa: E731

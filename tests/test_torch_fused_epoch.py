@@ -423,7 +423,9 @@ def test_launch_plan_fits_and_covers(preset, batch):
     cluster; the GEMM grids (block (x, y) computes tile row y, tile column x)
     cover each padded matrix exactly once; a batch cluster holds all the
     rows of its column tile; the depth ranks of a dW tile own disjoint,
-    complete row and depth slices; `dims()` hands the C entry that launch."""
+    complete row and depth slices; K3 updates the weights in one grouped
+    launch after the dX chain, K6 one launch a layer; `dims()` hands the C
+    entry that launch."""
     spec = ct.FusedStepSpec(cfg=getattr(mlp.MLPConfig, preset)(), batch=batch,
                             rho=0.1)
     plan = ct.launch_plan(spec)
@@ -431,12 +433,19 @@ def test_launch_plan_fits_and_covers(preset, batch):
     launches = ct.plan_launches(plan)
     m, pd = spec.n_layers, spec.pdims
     n_hidden_extra = 0 if plan["bn_in_epilogue"] else 2 * (m - 1)
-    assert len(launches) == m + 1 + (m - 1) + m + n_hidden_extra
-    for L in launches:
+    assert len(launches) == m + 1 + (m - 1) + 1 + n_hidden_extra
+    assert launches[-1] is plan["dw_group"]
+    per_layer = ct.plan_launches(plan, grouped=False)
+    assert len(per_layer) == m + 1 + (m - 1) + m + n_hidden_extra
+    assert per_layer[-m:] == plan["dw"][::-1]
+    for L in per_layer + [plan["dw_group"]]:
         assert L.smem_bytes <= ct.SMEM_LIMIT == 232448
         assert 1 <= L.cluster_size <= 8
         assert all(g % c == 0 for g, c in zip(L.grid, L.cluster))
         assert list(L.dims()) == [*L.grid, *L.cluster, L.smem_bytes]
+        if L.kernel == "dw_adam_group":
+            assert L.grid == (min(4 * 132, L.n_tiles), 1, 1)
+            continue
         if L.kernel in ("bn_fwd", "bn_bwd"):
             assert L.grid[0] * L.tile[1] == L.cols  # every column once
             continue

@@ -4,7 +4,7 @@ asr_using_robust_nn_tpu_torch): what they refuse, and the empty batch they
 answer without a launch. K2 (ops/cuda_spectral.py): what it refuses, each
 form against its twin, captured replays, the true widths inside K3's padded
 buffers, the parity gate's lockstep on its factors, and one product-form
-launch a step in a fit.
+launch a step in a fit (and K3's one grouped dW + Adam launch a step).
 
 The kernels' numerics on the card (against their plain twins, an f64 chain,
 the f64 oracle and the golden vectors, at every batch size) are checked by
@@ -300,8 +300,10 @@ def test_k2_counts_one_product_form_launch_a_step_in_a_fit(
         dev, tmp_path, preset, batch, rows, steps):
     """A device-resident fit on K3 captures one K2 launch a step, in the
     product form: while a profiler records, the fit's counters read
-    `k2.gram` 33 (digit) or 129 (speaker) and no `k2.chain`. A first fit
-    runs the parity gate, outside the traced one."""
+    `k2.gram` 33 (digit) or 129 (speaker) and no `k2.chain`; and one
+    grouped dW + Adam launch a step, `k3.dw_group`, with no per-layer
+    `k3.dw_layer`. A first fit runs the parity gate, outside the traced
+    one."""
     from asr_using_robust_nn_tpu_torch.constraints import (
         make_simple_norm_constraint)
     from asr_using_robust_nn_tpu_torch.models.mlp import MLPConfig, init_mlp
@@ -328,3 +330,5 @@ def test_k2_counts_one_product_form_launch_a_step_in_a_fit(
     fits = [c for fit, c in counters.items() if fit is not None]
     assert len(fits) == 1
     assert fits[0].get("k2.gram") == steps and "k2.chain" not in fits[0]
+    assert fits[0].get("k3.dw_group") == steps
+    assert "k3.dw_layer" not in fits[0]
